@@ -105,7 +105,7 @@ def build_library(verbose: bool = False) -> Path:
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
-        os.replace(tmp, lib_path)  # atomic: a concurrent builder sees all or nothing
+        os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)

@@ -169,7 +169,7 @@ def test_final_hand_pose_matches(both_runs):
         got, want = getattr(t.hand, name).numpy(), getattr(j.hand, name)
         np.testing.assert_allclose(got, want, atol=atol, err_msg=name)
     assert not np.allclose(t.hand.quat.numpy(), [1, 0, 0, 0])   # the pose did move
-    # the object pose is untouched in this slice
+    # the object pose is not optimized by the ported phases
     np.testing.assert_array_equal(t.obj.quat.numpy(), np.float32([1, 0, 0, 0]))
 
 
