@@ -150,11 +150,13 @@ def _tile_inputs(camera, verts, faces, faces_per_tile):
     return packed.geom, packed.tile_start, packed.meta
 
 
-def _raster_bound(tile_start, n_ops: int, n_pixel_bytes: int) -> tuple:
-    counts = (tile_start[1:] - tile_start[:-1]).double()
-    pairs = float(counts.sum().item()) * 256.0
+def _raster_bound(tile_start, n_ops: int, n_column_bytes: int, n_pixel_bytes: int) -> tuple:
+    """Least time for this run's lists: every (tile, face) column of 9 floats and
+    every pixel's values move once; every (pixel, face) pair costs n_ops."""
+    columns = float((tile_start[1:] - tile_start[:-1]).double().sum().item())
+    pairs = columns * 256.0
     T = tile_start.numel() - 1
-    nbytes = float(counts.sum().item()) * 36.0 + T * 256.0 * n_pixel_bytes
+    nbytes = columns * n_column_bytes + T * 256.0 * n_pixel_bytes
     t_ops, t_bytes = pairs * n_ops / _F32_FLOPS * 1e3, nbytes / _HBM_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), pairs
 
@@ -215,8 +217,8 @@ def check_rasterizer(dev) -> list:
         torch.autograd.grad((o[0] * gw1).sum() + (o[1] * gw2).sum() + (o[3] * gvis).sum(), g)
 
     plain_bwd_ms = cuda_ms(plain_fwd_bwd, 1, 2) - plain_fwd_ms
-    fwd_bound, fwd_by, pairs = _raster_bound(tile_start, _RASTER_FWD_OPS, 16)
-    bwd_bound, bwd_by, _ = _raster_bound(tile_start, _RASTER_BWD_OPS, 20 + 36)
+    fwd_bound, fwd_by, pairs = _raster_bound(tile_start, _RASTER_FWD_OPS, 36, 16)
+    bwd_bound, bwd_by, _ = _raster_bound(tile_start, _RASTER_BWD_OPS, 72, 20)
     say(f"kernel raster_fwd hand 512^2 F={faces.shape[0]} P={geom.shape[1]}: err {err_f:.3e} "
         f"slot mismatch {mismatch:.2e} kernel {fwd_ms:.3f} ms plain {plain_fwd_ms:.3f} ms "
         f"bound {fwd_bound:.4f} ms")
@@ -268,9 +270,11 @@ def check_rasterizer(dev) -> list:
         ref_o = R.raster_tiles_plain(geom_o, tile_start_o, meta_o)
     err_o, mismatch_o = _compare_forward("object", got_o, ref_o)
     obj_ms = cuda_ms(lambda: R.raster_tiles_forward(geom_o, tile_start_o, meta_o), 2, 20)
-    obj_bound, _, _ = _raster_bound(tile_start_o, _RASTER_FWD_OPS, 16)
+    bin_ms = cuda_ms(lambda: _tile_inputs(camera, obj_verts, sphere.faces[:nf], 24576), 1, 5)
+    obj_bound, _, _ = _raster_bound(tile_start_o, _RASTER_FWD_OPS, 36, 16)
     say(f"kernel raster_fwd object 512^2 F={nf} P={geom_o.shape[1]}: err {err_o:.3e} slot "
-        f"mismatch {mismatch_o:.2e} kernel {obj_ms:.3f} ms bound {obj_bound:.4f} ms")
+        f"mismatch {mismatch_o:.2e} kernel {obj_ms:.3f} ms bound {obj_bound:.4f} ms; "
+        f"projecting, binning and packing it (torch ops) {bin_ms:.3f} ms")
 
     fwd = dict(name="raster_fwd", route="cuda",
                source="followmyhold_tpu_torch/csrc/raster_fwd.cu",
@@ -278,7 +282,7 @@ def check_rasterizer(dev) -> list:
                max_abs_err=max(err_f, err_o), ms=fwd_ms, plain_ms=plain_fwd_ms,
                bound_ms=fwd_bound, bound_by=fwd_by, library_ms=None,
                pixel_face_pairs=pairs, slot_mismatch=max(mismatch, mismatch_o),
-               object_mesh=dict(faces=nf, ms=obj_ms, bound_ms=obj_bound))
+               object_mesh=dict(faces=nf, ms=obj_ms, bound_ms=obj_bound, bin_and_pack_ms=bin_ms))
     bwd = dict(name="raster_bwd", route="cuda",
                source="followmyhold_tpu_torch/csrc/raster_bwd.cu",
                replaces="followmyhold_tpu/ops/rasterizer.py:530",
