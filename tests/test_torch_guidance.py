@@ -9,12 +9,14 @@ with zero object and joint steps. Its rasterizer runs the Pallas kernels in
 interpret mode, whose semantics the port's plain version has.
 
 Tolerances: float32 on both sides. The latents pass through 6 DiT evaluations
-(1e-4). An Adam step is lr * m/(sqrt(v) + eps), so a relative error in a
-gradient component becomes the same relative error of a step of size lr; the
-gradients are dense pixel sums in which a few pixels are ill-conditioned in
-float32 (see test_torch_rasterizer, 2e-2 of the largest gradient at worst).
-After 3 steps: the raw quaternion (lr 0.5) to 5e-3, scale and translation
-(lr 1e-2) to 5e-4, the loss curve to 1e-3 relative.
+(1e-4; measured 2e-6). An Adam step is lr * m/(sqrt(v) + eps), so a relative
+error in a gradient component becomes the same relative error of a step of size
+lr; the gradients are dense pixel sums in which a few pixels are ill-conditioned
+in float32 (see test_torch_rasterizer: 2e-2 of the largest gradient at worst).
+After 3 steps that bounds the raw quaternion (lr 0.5) by 0.5 * 2e-2 = 1e-2
+(measured 2.4e-3) and scale and translation (lr 1e-2) by 5e-4 (measured 3e-5);
+the loss curve agrees to 1e-3 relative (measured 5e-5) and the posed hand
+vertices to 3e-3 (measured 4e-4, on a hand 0.3 across).
 """
 
 import functools
@@ -165,7 +167,7 @@ def test_hand_loss_curve_matches(both_runs):
 
 def test_final_hand_pose_matches(both_runs):
     j, t = both_runs["j"], both_runs["t"]
-    for name, atol in (("scale", 5e-4), ("trans", 5e-4), ("quat", 5e-3)):
+    for name, atol in (("scale", 5e-4), ("trans", 5e-4), ("quat", 1e-2)):
         got, want = getattr(t.hand, name).numpy(), getattr(j.hand, name)
         np.testing.assert_allclose(got, want, atol=atol, err_msg=name)
     assert not np.allclose(t.hand.quat.numpy(), [1, 0, 0, 0])   # the pose did move
@@ -181,7 +183,7 @@ def test_exported_meshes_match(both_runs):
     np.testing.assert_array_equal(tmesh.faces.numpy(), jmesh.faces)
     np.testing.assert_allclose(tmesh.verts.numpy(), jmesh.verts, atol=2e-4)
     np.testing.assert_allclose(both_runs["thand_verts"].numpy(), both_runs["jhand_verts"],
-                               atol=2e-3)
+                               atol=3e-3)
 
 
 def test_run_reports_phase_seconds(both_runs):

@@ -1,9 +1,9 @@
 """DiT and ShapeVAE of the PyTorch port against the Flax modules, with the same
 weights (through ``flax_to_torch``) and the same numpy inputs.
 
-Float32 at tiny widths; tolerance 1e-4 absolute on outputs of order one: the
-two frameworks sum matrix products, LayerNorm statistics (Flax uses
-E[x^2]-E[x]^2) and softmax in another order, through a few layers. Every leaf
+Float32 at tiny widths; tolerance 2e-5 absolute on outputs of order one
+(measured 1.3e-6): the two frameworks sum matrix products, LayerNorm statistics
+(Flax uses E[x^2]-E[x]^2) and softmax in another order, through a few layers. Every leaf
 of the Flax trees is perturbed with seeded noise first, so that biases and norm
 scales, which initialise to 0 and 1, are exercised.
 """
@@ -18,7 +18,7 @@ from followmyhold_tpu.models import hunyuan as JH
 from followmyhold_tpu_torch.models import hunyuan as TH
 from followmyhold_tpu_torch.utils.params import flax_to_torch, init_random_
 
-ATOL = 1e-4
+ATOL = 2e-5
 
 
 def _perturbed(params, seed):
