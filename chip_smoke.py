@@ -216,6 +216,7 @@ def check_rasterizer(dev) -> list:
         o = R.raster_tiles_plain(g, tile_start, meta)
         torch.autograd.grad((o[0] * gw1).sum() + (o[1] * gw2).sum() + (o[3] * gvis).sum(), g)
 
+    # the plain backward alone: forward + backward, less the forward timed above
     plain_bwd_ms = cuda_ms(plain_fwd_bwd, 1, 2) - plain_fwd_ms
     fwd_bound, fwd_by, pairs = _raster_bound(tile_start, _RASTER_FWD_OPS, 36, 16)
     bwd_bound, bwd_by, _ = _raster_bound(tile_start, _RASTER_BWD_OPS, 72, 20)
