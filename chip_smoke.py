@@ -13,10 +13,12 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             inputs; time kernel, plain version and, for attention, PyTorch's
             scaled_dot_product_attention as a yardstick (the port never calls it).
 4. main     full-width Hunyuan3D-2 DiT + ShapeVAE with seeded random weights:
-            GuidedSampler.run (20 CFG steps, 200 hand-pose Adam steps through
-            render and losses, scheduler advance) and export_meshes at 64^3.
-            The kernels' launch counts are set to 0 just before and read just
-            after.
+            GuidedSampler.run with the default OptimizationConfig (20 CFG
+            steps; 200 hand-pose Adam steps, 100 object-phase and 9 x 50
+            joint-phase AdamW steps, each through the ShapeVAE decode and its
+            backward, marching tets, render and losses; scheduler advance)
+            and export_meshes at 64^3. The kernels' launch counts are set to
+            0 just before and read just after.
 5. result   a `kernels` JSON line, the nvidia-smi line, and the `ok` JSON line.
 
 Tolerances, and why:
@@ -26,6 +28,12 @@ Tolerances, and why:
   O to bf16 (relative 2^-8).
 - flash attention logsumexp (f32): 2e-3 absolute: exp2/log in another order
   and f32 sums over up to 4442 columns.
+- flash attention backward (dq f32, dk and dv bf16): 2e-2 * max|ref| + 1e-3
+  against the plain version on the same inputs, which rounds p and ds to bf16
+  where the kernel does. The sums over up to 8192 rows run in another order
+  (tensor-core f32 accumulators against torch's matmuls), and dk and dv are
+  rounded to bf16 on both sides (relative 2^-8), so one rounding step of the
+  largest entry is the scale of the difference.
 - rasterizer forward: winner slots must agree on all but 0.1 % of the pixels
   (the arithmetic is bit-identical by construction; the margin is for depth
   ties). Where they agree, w1, w2 to 1e-5 and vis to 1e-4 (the visibility
@@ -136,6 +144,87 @@ def check_flash_attention(dev) -> dict:
     return dict(name="flash_attention_fwd", route="cuda",
                 source="followmyhold_tpu_torch/csrc/flash_attention_fwd.cu",
                 replaces="followmyhold_tpu/ops/attention.py:108",
+                max_abs_err=max(s["max_abs_err"] for s in per_shape),
+                ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=head["library_ms"], shapes=per_shape)
+
+
+def _plain_backward_by_slice(A, q, k, v, do, lse, dsum, scale):
+    """The plain backward one batch slice at a time: its f32 [H,N,M]
+    temporaries of the whole geo batch would not fit beside the inputs."""
+    parts = [A.flash_attention_backward_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                              do[b:b + 1], lse[b:b + 1], dsum[b:b + 1], scale)
+             for b in range(q.shape[0])]
+    return tuple(torch.cat(xs) for xs in zip(*parts))
+
+
+def check_flash_attention_backward(dev) -> dict:
+    from followmyhold_tpu_torch.ops import attention as A
+
+    shapes = [  # (label, B, H, N, M, D); the first has most launches on the main path
+        ("vae_self", 1, 16, 3072, 3072, 64),
+        ("geo_cross", 4, 16, 8192, 3072, 64),
+        ("dit_joint", 2, 16, 4442, 4442, 128),
+    ]
+    per_shape = []
+    for label, B, H, N, M, D in shapes:
+        gen = torch.Generator(device=dev).manual_seed(N + D + 1)
+        q = (torch.randn((B, H, N, D), generator=gen, device=dev) * 2.0).bfloat16()
+        k = torch.randn((B, H, M, D), generator=gen, device=dev).bfloat16()
+        v = torch.randn((B, H, M, D), generator=gen, device=dev).bfloat16()
+        do = torch.randn((B, H, N, D), generator=gen, device=dev).bfloat16()
+        scale = 1.0 / math.sqrt(D)
+        with torch.no_grad():
+            out, lse = A.flash_attention_forward(q, k, v, scale)
+            dsum = (do.float() * out.float()).sum(-1)
+            dq, dk, dv = A.flash_attention_backward(q, k, v, do, lse, dsum, scale)
+            _, dk_nq, dv_nq = A.flash_attention_backward(q, k, v, do, lse, dsum, scale,
+                                                         need_dq=False)
+            torch.cuda.synchronize()
+            if not (torch.equal(dk, dk_nq) and torch.equal(dv, dv_nq)):
+                fail(f"flash backward {label}: dk/dv change when the dq pass is skipped")
+            ref = _plain_backward_by_slice(A, q, k, v, do, lse, dsum, scale)
+            errs = {}
+            for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                err = (got.float() - want.float()).abs().max().item()
+                tol = 2e-2 * want.float().abs().max().item() + 1e-3
+                if not (math.isfinite(err) and err <= tol):
+                    fail(f"flash backward {label}: {name} differs by {err} (tolerance {tol})")
+                errs[name] = err
+            del ref
+            ms = cuda_ms(lambda: A.flash_attention_backward(q, k, v, do, lse, dsum, scale), 2, 10)
+            ms_no_dq = cuda_ms(lambda: A.flash_attention_backward(
+                q, k, v, do, lse, dsum, scale, need_dq=False), 2, 10)
+            plain_ms = cuda_ms(lambda: _plain_backward_by_slice(
+                A, q, k, v, do, lse, dsum, scale), 1, 2)
+        # the library's backward alone: one forward, then its backward timed
+        qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do,
+                                                     retain_graph=True), 2, 10)
+        del qg, kg, vg, sdpa_out
+        flops = 10.0 * B * H * N * M * D   # five products of 2*N*M*D
+        nbytes = (2.0 * B * H * D * (2 * N + 2 * M)   # q, do, k, v in
+                  + 4.0 * B * H * N * 2               # lse, dsum in
+                  + 4.0 * B * H * N * D               # dq out (f32)
+                  + 2.0 * B * H * M * D * 2)          # dk, dv out
+        t_ops, t_bytes = flops / _BF16_FLOPS * 1e3, nbytes / _HBM_BYTES * 1e3
+        per_shape.append(dict(
+            shape=label, dims=[B, H, N, M, D], max_abs_err=max(errs.values()),
+            errs=errs, ms=ms, ms_without_dq=ms_no_dq, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            tflops=flops / ms / 1e9))
+        say(f"kernel flash_attention_bwd {label} {[B, H, N, M, D]}: err dq {errs['dq']:.3e} "
+            f"dk {errs['dk']:.3e} dv {errs['dv']:.3e} kernel {ms:.3f} ms (without dq "
+            f"{ms_no_dq:.3f} ms) plain {plain_ms:.3f} ms sdpa backward {lib_ms:.3f} ms "
+            f"bound {max(t_ops, t_bytes):.3f} ms")
+        del q, k, v, do, out, lse, dsum, dq, dk, dv, dk_nq, dv_nq
+        torch.cuda.empty_cache()
+    head = per_shape[0]
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="followmyhold_tpu_torch/csrc/flash_attention_bwd.cu",
+                replaces="followmyhold_tpu/ops/attention.py:216",
                 max_abs_err=max(s["max_abs_err"] for s in per_shape),
                 ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                 bound_by=head["bound_by"], library_ms=head["library_ms"], shapes=per_shape)
@@ -271,10 +360,13 @@ def check_rasterizer(dev) -> list:
         ref_o = R.raster_tiles_plain(geom_o, tile_start_o, meta_o)
     err_o, mismatch_o = _compare_forward("object", got_o, ref_o)
     obj_ms = cuda_ms(lambda: R.raster_tiles_forward(geom_o, tile_start_o, meta_o), 2, 20)
+    with torch.no_grad():
+        obj_plain_ms = cuda_ms(lambda: R.raster_tiles_plain(geom_o, tile_start_o, meta_o), 0, 1)
     bin_ms = cuda_ms(lambda: _tile_inputs(camera, obj_verts, sphere.faces[:nf], 24576), 1, 5)
     obj_bound, _, _ = _raster_bound(tile_start_o, _RASTER_FWD_OPS, 36, 16)
     say(f"kernel raster_fwd object 512^2 F={nf} P={geom_o.shape[1]}: err {err_o:.3e} slot "
-        f"mismatch {mismatch_o:.2e} kernel {obj_ms:.3f} ms bound {obj_bound:.4f} ms; "
+        f"mismatch {mismatch_o:.2e} kernel {obj_ms:.3f} ms plain {obj_plain_ms:.3f} ms bound "
+        f"{obj_bound:.4f} ms; "
         f"projecting, binning and packing it (torch ops) {bin_ms:.3f} ms")
 
     fwd = dict(name="raster_fwd", route="cuda",
@@ -283,7 +375,8 @@ def check_rasterizer(dev) -> list:
                max_abs_err=max(err_f, err_o), ms=fwd_ms, plain_ms=plain_fwd_ms,
                bound_ms=fwd_bound, bound_by=fwd_by, library_ms=None,
                pixel_face_pairs=pairs, slot_mismatch=max(mismatch, mismatch_o),
-               object_mesh=dict(faces=nf, ms=obj_ms, bound_ms=obj_bound, bin_and_pack_ms=bin_ms))
+               object_mesh=dict(faces=nf, ms=obj_ms, plain_ms=obj_plain_ms, bound_ms=obj_bound,
+                                bin_and_pack_ms=bin_ms))
     bwd = dict(name="raster_bwd", route="cuda",
                source="followmyhold_tpu_torch/csrc/raster_bwd.cu",
                replaces="followmyhold_tpu/ops/rasterizer.py:530",
@@ -297,7 +390,36 @@ def check_rasterizer(dev) -> list:
 # main path
 # --------------------------------------------------------------------------- #
 
+def _noise_moved(sampler, result, cond_cat, n_steps) -> float:
+    """How far the joint phase moved the last noise prediction: the latents
+    before the last scheduler step are recovered from the result, the DiT's
+    CFG prediction there is taken again, and the optimized prediction is held
+    against it."""
+    from followmyhold_tpu_torch.diffusion.pipeline import cfg_noise_pred
+
+    sched = sampler._schedule(n_steps)
+    i = n_steps - 1
+    dsigma = float(np.float32(sched.sigmas[i + 1]) - np.float32(sched.sigmas[i]))
+    before = result.latents - dsigma * result.noise_pred
+    g = sampler.config.obj_guidance_scale * (1 - i / n_steps)
+    with torch.no_grad():
+        plain = cfg_noise_pred(sampler.dit, cond_cat, before,
+                               sched.timesteps[i] / sched.num_train_timesteps, g)
+    return (result.noise_pred - plain).abs().max().item()
+
+
 def run_main_path(dev) -> dict:
+    """The default OptimizationConfig end to end: 20 CFG steps; at step 9 the
+    hand phase (200 Adam steps); at step 10 the object phase (100 AdamW steps
+    through step_final -> the two-level ShapeVAE decode -> marching tets ->
+    render); at steps 11-19 the joint phase (50 AdamW steps each); then the
+    export at 64^3.
+
+    With random weights the decoded SDF is a noise field, so a falling object
+    loss is not required (the object cannot fit the targets' silhouette); the
+    run must instead finish with finite loss curves of full length, an object
+    pose and a noise prediction that the optimizers moved, and every kernel
+    launched as often as the phases call it."""
     from followmyhold_tpu_torch.configs.guidance import OptimizationConfig, guidance_mesh_caps
     from followmyhold_tpu_torch.diffusion.guidance import GuidedSampler
     from followmyhold_tpu_torch.geometry.hunyuan import build_models
@@ -320,7 +442,7 @@ def run_main_path(dev) -> dict:
     cond = torch.randn((1, 1370, DIT_FULL.context_dim), generator=gen, device=dev)
     uncond = torch.zeros_like(cond)
 
-    config = OptimizationConfig(optimization_steps_scale=0, optimization_steps_joint=0)
+    config = OptimizationConfig()
     sampler = GuidedSampler(dit=dit, vae=vae, camera=camera, config=config,
                             **guidance_mesh_caps())
 
@@ -339,24 +461,49 @@ def run_main_path(dev) -> dict:
     launches = _kernels.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    n_steps, n_hand = config.num_inference_steps, config.optimization_steps_hand
+    n_steps = config.num_inference_steps
+    n_hand, n_obj = config.optimization_steps_hand, config.optimization_steps_scale
+    n_joint_phases = n_steps - config.handopt_start_step - 2
+    n_joint = config.optimization_steps_joint * n_joint_phases
     n_blocks = DIT_FULL.depth_double + DIT_FULL.depth_single
-    curve = result.losses["hand"].float().cpu()
-    nv, nf = obj_mesh.num_verts, obj_mesh.num_faces
-    dit_s = result.seconds["dit_steps"]
+    sec = result.seconds
+    dit_s = sec["dit_steps"]
     say(f"main: run {run_s:.2f} s (DiT step median {float(np.median(dit_s)):.4f} s, first "
-        f"{dit_s[0]:.4f} s; hand phase {result.seconds['hand']:.2f} s = "
-        f"{result.seconds['hand'] / n_hand * 1e3:.2f} ms/iteration), export {export_s:.2f} s, "
+        f"{dit_s[0]:.4f} s; hand phase {sec['hand']:.2f} s = "
+        f"{sec['hand'] / n_hand * 1e3:.2f} ms/iteration; object phase {sec['obj']:.2f} s = "
+        f"{sec['obj'] / n_obj * 1e3:.2f} ms/iteration; joint phases {sec['joint']:.2f} s = "
+        f"{sec['joint'] / n_joint * 1e3:.2f} ms/iteration), export {export_s:.2f} s, "
         f"peak memory {peak_gb:.2f} GiB")
-    say(f"main: hand loss first {curve[0].item():.5f} last {curve[-1].item():.5f} min "
-        f"{curve.min().item():.5f}; object mesh {nv} verts {nf} faces; launches {launches}")
 
-    if curve.numel() != n_hand or not torch.isfinite(curve).all():
-        fail("hand loss curve is incomplete or not finite")
-    if not curve[-1].item() < curve[0].item():
-        fail(f"hand loss did not decrease: {curve[0].item()} -> {curve[-1].item()}")
-    if not all(torch.isfinite(x).all() for x in (result.latents, *result.hand, hand_verts)):
-        fail("non-finite latents or hand pose")
+    curves = {tag: c.float().cpu() for tag, c in result.losses.items()}
+    want_len = {"hand": n_hand, "obj": n_obj}
+    want_len.update({f"joint_{i}": config.optimization_steps_joint
+                     for i in range(config.handopt_start_step + 2, n_steps)})
+    for tag, c in curves.items():
+        say(f"main: {tag} loss first {c[0].item():.5f} last {c[-1].item():.5f} "
+            f"min {c.min().item():.5f}")
+    nv, nf = obj_mesh.num_verts, obj_mesh.num_faces
+    moved = _noise_moved(sampler, result, torch.cat([cond, uncond]), n_steps)
+    say(f"main: object pose scale {result.obj.scale.tolist()} trans {result.obj.trans.tolist()} "
+        f"quat {result.obj.quat.tolist()}; the joint phase moved the noise prediction by "
+        f"{moved:.4f}; object mesh {nv} verts {nf} faces; launches {launches}")
+
+    if sorted(curves) != sorted(want_len):
+        fail(f"loss curves of phases {sorted(curves)}, expected {sorted(want_len)}")
+    for tag, c in curves.items():
+        if c.numel() != want_len[tag] or not torch.isfinite(c).all():
+            fail(f"{tag} loss curve is incomplete or not finite")
+    if not curves["hand"][-1].item() < curves["hand"][0].item():
+        fail(f"hand loss did not decrease: {curves['hand'][0].item()} -> "
+             f"{curves['hand'][-1].item()}")
+    if not all(torch.isfinite(x).all() for x in (result.latents, result.noise_pred,
+                                                  *result.hand, *result.obj, hand_verts)):
+        fail("non-finite latents, noise prediction or poses")
+    if torch.allclose(result.obj.quat.cpu(), torch.tensor([1.0, 0.0, 0.0, 0.0])) or \
+            torch.allclose(result.obj.trans.cpu(), torch.zeros(3)):
+        fail("the object pose did not move")
+    if not moved > 1e-3:
+        fail(f"the joint phase did not move the noise prediction ({moved})")
     if tuple(result.latents.shape) != (1, VAE_FULL.num_latents, VAE_FULL.embed_dim):
         fail(f"latents have shape {tuple(result.latents.shape)}")
     if nv <= 0 or nf <= 0 or not torch.isfinite(obj_mesh.verts).all():
@@ -364,9 +511,17 @@ def run_main_path(dev) -> dict:
     if launches["flash_attention_fwd"] < n_blocks * n_steps:
         fail(f"flash attention launched {launches['flash_attention_fwd']} times, expected at "
              f"least {n_blocks * n_steps}")
-    if launches["raster_fwd"] < n_hand or launches["raster_bwd"] < n_hand:
+    # one backward per ShapeVAE self-attention block in every object/joint iteration
+    want_bwd = VAE_FULL.depth * (n_obj + n_joint)
+    if launches["flash_attention_bwd"] < want_bwd:
+        fail(f"flash attention backward launched {launches['flash_attention_bwd']} times, "
+             f"expected at least {want_bwd}")
+    # one render per hand and object iteration, two (hand alone, then the scene)
+    # per joint iteration
+    want_raster = n_hand + n_obj + 2 * n_joint
+    if launches["raster_fwd"] < want_raster or launches["raster_bwd"] < want_raster:
         fail(f"rasterizer launched {launches['raster_fwd']} / {launches['raster_bwd']} times, "
-             f"expected at least {n_hand} each")
+             f"expected at least {want_raster} each")
     return launches
 
 
@@ -391,7 +546,8 @@ def main() -> None:
     _kernels.load_library(verbose=True)
     say(f"build: kernels compiled and loaded in {time.perf_counter() - t0:.1f} s")
 
-    kernels = [check_flash_attention(dev), *check_rasterizer(dev)]
+    kernels = [check_flash_attention(dev), check_flash_attention_backward(dev),
+               *check_rasterizer(dev)]
     launches = {k["name"]: 0 for k in kernels}
     if not args.kernels_only:
         launches = run_main_path(dev)

@@ -7,22 +7,31 @@ injected inside the loop:
   step 9  (handopt_start):  PHASE 1: 200 Adam steps on hand scale/trans/quat;
           losses: 1e-2 kps2D-MSE + normal + 10 disparity + silhouette-BCE
           + 1e-2 trans reg
-  step 10:                  PHASE 1.5: object pose + noise prediction
-  steps 11..19:             PHASE 2: hand, object and noise jointly
+  step 10:                  PHASE 1.5: 100 AdamW steps on object scale/trans/quat
+          + noise prediction; 1 edge + 10 normal + 10 disparity + 100 sil-BCE
+          + 1e-3 verts + 1e-2 trans reg
+  steps 11..19:             PHASE 2: 50 AdamW steps on all seven jointly;
+          + 10 attraction + intersection + HOI-scene normal/disparity/sil
+          + 1e-3 * hand losses
 
 followed by the scheduler advancing with the (optimized) noise prediction. The
 CFG scale decays as scale*(1 - i/N) after guidance starts.
 
-Ported so far: the DiT loop with the CFG decay, phase 1 complete, the
-scheduler advance and ``export_meshes`` on the device path. Phases 1.5 and 2
-differentiate through the ShapeVAE decode and need the flash-attention
-backward kernel; until they are ported ``run`` raises for a configuration that
-asks for them (``optimization_steps_scale`` or ``optimization_steps_joint``
-above 0) rather than skipping them.
+Phases 1.5 and 2 differentiate, every iteration, through
+``step_final`` -> the ShapeVAE grid decode (two-level by default) -> marching
+tets -> the pose transform -> the rasterizer, so the flash-attention backward
+kernel and both rasterizer kernels run inside them. The joint phase adds an
+attraction term (squared nearest-neighbour distances from the hand to the
+object, 1 cm margin) and, near the end, a gradient-free intersection count:
+the object's occupancy is read from the decoded SDF grid by trilinear lookup,
+the hand's by winding number against the MANO mesh.
+
+Not ported: ``run_batch``, the debug dumps and the 384^3 export.
 
 Where the reference folds each optimizer loop into one compiled scan, this is a
-Python loop around ``torch.optim.Adam``; an empty render or a NaN loss degrades
-to a zero contribution instead of an exception.
+Python loop around ``torch.optim.Adam`` / ``torch.optim.AdamW`` (one parameter
+group per learning rate); an empty render or a NaN loss degrades to a zero
+contribution instead of an exception.
 """
 
 from __future__ import annotations
@@ -42,18 +51,34 @@ from followmyhold_tpu_torch.diffusion.scheduler import (
     step,
     step_final,
 )
-from followmyhold_tpu_torch.models.hunyuan import HunyuanDiT, ShapeVAE, vae_query_logits
+from followmyhold_tpu_torch.models.hunyuan import (
+    HunyuanDiT,
+    ShapeVAE,
+    vae_query_logits,
+    vae_query_logits_hier_grid,
+)
 from followmyhold_tpu_torch.models.mano import mano_vert_to_3dkps
 from followmyhold_tpu_torch.ops.camera import GuidanceCamera
-from followmyhold_tpu_torch.ops.grid import generate_dense_grid_points
+from followmyhold_tpu_torch.ops.grid import generate_dense_grid_points, generate_grid
+from followmyhold_tpu_torch.ops.knn import nn_sqdist
 from followmyhold_tpu_torch.ops.losses import (
+    attraction_loss,
     binary_cross_entropy,
     masked_l1,
+    mesh_edge_loss,
     mse,
     normal_alignment_loss,
+    verts_reg_loss,
 )
+from followmyhold_tpu_torch.ops.precision import matmul_f32
 from followmyhold_tpu_torch.ops.rasterizer import render_normal_and_disparity
-from followmyhold_tpu_torch.ops.surface import PaddedMesh, marching_tets, vertex_normals
+from followmyhold_tpu_torch.ops.sdf import winding_number
+from followmyhold_tpu_torch.ops.surface import (
+    PaddedMesh,
+    marching_tets,
+    mesh_edges,
+    vertex_normals,
+)
 from followmyhold_tpu_torch.ops.transforms import (
     rt_from_quat_trans,
     transform_around_center_w_scale,
@@ -92,9 +117,10 @@ class GuidanceResult(NamedTuple):
     noise_pred: torch.Tensor
     hand: PoseParams
     obj: PoseParams
-    # per-phase loss curves: {"hand": [200], ...}
+    # per-phase loss curves: {"hand": [200], "obj": [100], "joint_11": [50], ...}
     losses: Optional[dict] = None
-    # wall seconds (synchronized): {"dit_steps": [N floats], "hand": float}
+    # wall seconds (synchronized): {"dit_steps": [N floats], "hand": float,
+    # "obj": float, "joint": float (all joint phases together)}
     seconds: Optional[dict] = None
 
 
@@ -137,18 +163,31 @@ def _hand_render_losses(verts, targets: GuidanceTargets, camera: GuidanceCamera,
     return losses, (n01, disp01, out)
 
 
-@torch.no_grad()
 def _decode_object(vae: ShapeVAE, sched: FlowMatchSchedule, step_i: int,
                    noise_pred: torch.Tensor, latents: torch.Tensor, xyz, bbox,
-                   octree_res: int, max_verts: int, max_faces: int, chunk: int):
-    """step_final -> SDF grid -> padded mesh (hunyuan space), plus the grid.
-    Dense decode, without autograd: the two-level decode and the
-    differentiable decode are not ported yet."""
+                   octree_res: int, max_verts: int, max_faces: int, chunk: int,
+                   hier_cf: int = 0, hier_cap: int = 10240, remat: str = "full",
+                   hier_small_cap: Optional[int] = None):
+    """step_final -> SDF grid -> padded mesh (hunyuan space): (mesh, sdf,
+    capacity indicator), differentiable with respect to ``noise_pred``.
+
+    ``hier_cf > 1`` takes the two-level decode (exact wherever marching tets
+    emits geometry, far fewer geo queries); ``hier_cf`` 0 or 1 the dense one,
+    whose indicator is 0. An indicator above ``hier_cap`` means the two-level
+    decode kept interpolated background in the cells it missed."""
     x1 = step_final(sched, step_i, noise_pred, latents)
-    sdf = -vae_query_logits(vae, x1, xyz[None], chunk)[0]  # inside < 0
+    if hier_cf > 1:
+        logits, n_sel = vae_query_logits_hier_grid(
+            vae, x1, bbox[0], bbox[1], octree_res, chunk, coarse_factor=hier_cf,
+            cell_cap=hier_cap, remat=remat, small_cell_cap=hier_small_cap)
+        logits = logits[0]
+    else:
+        logits = vae_query_logits(vae, x1, xyz[None], chunk, remat=remat)[0]
+        n_sel = 0
+    sdf = -logits  # inside < 0
     mesh = marching_tets(sdf, bbox[0], bbox[1], octree_res,
                          max_verts=max_verts, max_faces=max_faces)
-    return mesh, sdf
+    return mesh, sdf, n_sel
 
 
 def _transform_object(mesh: PaddedMesh, targets: GuidanceTargets,
@@ -157,6 +196,102 @@ def _transform_object(mesh: PaddedMesh, targets: GuidanceTargets,
     rt = rt_from_quat_trans(p.quat, p.trans)
     v = transform_around_center_w_scale(v, rt, p.scale[0], mesh.vert_mask)
     return mesh._replace(verts=v)
+
+
+def _join_meshes(a_verts, a_faces, a_vmask, a_fmask, b: PaddedMesh) -> PaddedMesh:
+    return PaddedMesh(
+        verts=torch.cat([a_verts, b.verts]),
+        faces=torch.cat([a_faces, b.faces + a_verts.shape[0]]),
+        vert_mask=torch.cat([a_vmask, b.vert_mask]),
+        face_mask=torch.cat([a_fmask, b.face_mask]),
+    )
+
+
+def _intersection_count(hand_verts, hand_faces, obj_hun: PaddedMesh, obj_verts_posed,
+                        obj_sdf_grid, xyz_bbox, octree_res: int, targets: GuidanceTargets,
+                        obj_pose: PoseParams, sample_res: int = 32) -> torch.Tensor:
+    """Grid points inside both the hand and the object, / 1000; gradient-free
+    (call with detached inputs). The grid spans the joint bbox of the hand and
+    the posed object.
+
+    ``obj_hun`` is the pre-pose hunyuan-space mesh and ``obj_verts_posed`` the
+    posed moge-space verts. The pose inverse pivots on the bbox center of the
+    pre-pose moge verts, the center ``_transform_object`` used.
+    """
+    big = torch.finfo(torch.float32).max
+    om = obj_hun.vert_mask[:, None].bool()
+
+    def masked_lo_hi(v):
+        return (torch.where(om, v, torch.full_like(v, big)).amin(dim=0),
+                torch.where(om, v, torch.full_like(v, -big)).amax(dim=0))
+
+    ov_lo, ov_hi = masked_lo_hi(obj_verts_posed)
+    lo = torch.minimum(hand_verts.amin(dim=0), ov_lo)
+    hi = torch.maximum(hand_verts.amax(dim=0), ov_hi)
+    pts = generate_grid(lo, hi, sample_res)                       # [P,3] moge space
+
+    # hand occupancy: winding number against the hand mesh
+    inside_hand = winding_number(pts, hand_verts, hand_faces) > 0.5
+
+    # object occupancy: undo the similarity transform, then sample the decoded
+    # hunyuan-space SDF grid trilinearly
+    rt = rt_from_quat_trans(obj_pose.quat, obj_pose.trans)
+    m_lo, m_hi = masked_lo_hi(transform_points(obj_hun.verts, targets.t_h2m))
+    center = (m_lo + m_hi) / 2.0
+    # p = s*R(q - c) + c + t  =>  q = R^T((p - c - t)/s) + c
+    q = (pts - center - obj_pose.trans) / obj_pose.scale[0].clamp(min=1e-6)
+    q = matmul_f32(q, rt[:3, :3]) + center
+    q = transform_points(q, torch.linalg.inv(targets.t_h2m))     # moge -> hunyuan
+
+    n = octree_res + 1
+    lo_h, hi_h = xyz_bbox
+    u = ((q - lo_h) / (hi_h - lo_h) * octree_res).clamp(0.0, octree_res - 1e-4)
+    grid = obj_sdf_grid.reshape(-1)
+    i0 = torch.floor(u).long()
+    f = u - i0
+    fx, fy, fz = f.unbind(-1)
+    gx, gy, gz = 1 - fx, 1 - fy, 1 - fz
+
+    def g(dx, dy, dz):
+        return grid[((i0[:, 0] + dx) * n + i0[:, 1] + dy) * n + i0[:, 2] + dz]
+
+    sdf_obj = (
+        g(0, 0, 0) * gx * gy * gz
+        + g(1, 0, 0) * fx * gy * gz
+        + g(0, 1, 0) * gx * fy * gz
+        + g(0, 0, 1) * gx * gy * fz
+        + g(1, 1, 0) * fx * fy * gz
+        + g(1, 0, 1) * fx * gy * fz
+        + g(0, 1, 1) * gx * fy * fz
+        + g(1, 1, 1) * fx * fy * fz
+    )
+    return torch.sum(inside_hand & (sdf_obj < 0)).float() / 1000.0
+
+
+def _optimize(opt: torch.optim.Optimizer, steps: int, loss_step, dev: torch.device):
+    """``steps`` optimizer steps on ``loss_step() -> (total, indicators)``,
+    where a non-finite total contributes nothing. -> (loss curve [steps],
+    each capacity indicator's values over the steps)."""
+    losses = []
+    renders: Dict[str, list] = {}
+    for _ in range(steps):
+        total, indicators = loss_step()
+        total = torch.where(torch.isfinite(total), total, torch.zeros_like(total))
+        opt.zero_grad(set_to_none=True)
+        total.backward()
+        opt.step()
+        losses.append(total.detach())
+        for name, value in indicators.items():
+            renders.setdefault(name, []).append(value)
+    curve = torch.stack(losses) if losses else torch.zeros(0, device=dev)
+    return curve, renders
+
+
+def _indicators(out, n_sel: Optional[int] = None) -> dict:
+    ind = dict(raster_bins=out.bin_max, raster_cap=out.bin_capacity)
+    if n_sel is not None:
+        ind["hier_cells"] = n_sel
+    return ind
 
 
 def _sync(dev: torch.device) -> None:
@@ -185,6 +320,17 @@ class GuidedSampler:
     # hand-only renders draw the 1538-face MANO mesh; a capacity >= the face
     # count can never overflow
     hand_faces_per_tile: int = 2048
+    # in-loop two-level decode: coarse lattice at res/inloop_coarse_factor
+    # (0 or 1 = the dense decode); inloop_cell_cap surface cells are refined,
+    # the reference's worst case measured on box-filling shapes with margin
+    inloop_coarse_factor: int = 2
+    inloop_cell_cap: int = 10240
+    # the reference's two-tier refine capacity; the refine set is sized
+    # exactly here, so it has no effect (see vae_query_logits_hier_grid)
+    inloop_small_cap: Optional[int] = None
+    # geo-query rematerialisation in the object/joint phases:
+    # 'full' | 'tail' | 'none' (see models.hunyuan._geo_query_grouped)
+    vae_remat: str = "none"
     # checkpoint scheduler_config shift, applied to the linspace(0,1) sigmas
     scheduler_shift: float = 1.0
 
@@ -200,6 +346,9 @@ class GuidedSampler:
                 torch.tensor([self.box_v] * 3, device=dev))
         return xyz, bbox
 
+    def _raster_kw(self) -> dict:
+        return dict(faces_per_tile=self.raster_faces_per_tile)
+
     def _hand_raster_kw(self) -> dict:
         return dict(faces_per_tile=min(self.hand_faces_per_tile,
                                        self.raster_faces_per_tile))
@@ -207,14 +356,30 @@ class GuidedSampler:
     def _warn_capacity(self, tag: str, renders: Optional[dict]) -> None:
         """Post-phase check of the capacity indicators collected over the
         phase's iterations (worst case)."""
-        if not renders or not renders.get("raster_bins"):
+        if not renders:
             return
-        worst = max(renders["raster_bins"])
-        cap = min(renders["raster_cap"])
-        if worst > cap:
-            print(f"WARNING: rasterizer bin overflow at {tag}: {worst}/{cap} faces in "
-                  f"the densest tile — overflow faces were DROPPED (wrong pixels and "
-                  f"gradients there); raise raster_faces_per_tile")
+        if renders.get("hier_cells"):
+            worst = max(renders["hier_cells"])
+            if worst > self.inloop_cell_cap:
+                # the indicator is max(cells, points scaled into cell units):
+                # either capacity is raised with inloop_cell_cap
+                print(f"WARNING: in-loop hier decode capacity overflow (cells or refine "
+                      f"points) at {tag}: {worst}/{self.inloop_cell_cap} — missed points "
+                      f"kept interpolated values; raise inloop_cell_cap")
+        if renders.get("raster_bins"):
+            worst = max(renders["raster_bins"])
+            cap = min(renders["raster_cap"])
+            if worst > cap:
+                print(f"WARNING: rasterizer bin overflow at {tag}: {worst}/{cap} faces in "
+                      f"the densest tile — overflow faces were DROPPED (wrong pixels and "
+                      f"gradients there); raise raster_faces_per_tile")
+
+    def _decode(self, noise, latents, sched, step_i, xyz, bbox):
+        return _decode_object(
+            self.vae, sched, step_i, noise, latents, xyz, bbox,
+            self.config.octree_resolution, self.max_verts, self.max_faces, self.vae_chunk,
+            self.inloop_coarse_factor, self.inloop_cell_cap, self.vae_remat,
+            self.inloop_small_cap)
 
     # phase 1: hand only ------------------------------------------------ #
 
@@ -229,11 +394,9 @@ class GuidedSampler:
             [{"params": [scale], "lr": lrs.scale},
              {"params": [trans], "lr": lrs.trans},
              {"params": [quat], "lr": lrs.rot}], eps=1e-4)
-        losses = []
-        renders: Dict[str, list] = {"raster_bins": [], "raster_cap": []}
-        for _ in range(cfg.optimization_steps_hand):
-            p = PoseParams(scale, trans, quat)
-            verts = _transform_hand(targets, p)
+
+        def loss_step():
+            verts = _transform_hand(targets, PoseParams(scale, trans, quat))
             terms, (_, _, out) = _hand_render_losses(
                 verts, targets, self.camera, self._hand_raster_kw(), with_sil=True)
             total = (
@@ -243,15 +406,137 @@ class GuidedSampler:
                 + 1.0 * terms["sil"]
                 + 1e-2 * torch.mean(trans ** 2)
             )
-            total = torch.where(torch.isfinite(total), total, torch.zeros_like(total))
-            opt.zero_grad(set_to_none=True)
-            total.backward()
-            opt.step()
-            losses.append(total.detach())
-            renders["raster_bins"].append(out.bin_max)
-            renders["raster_cap"].append(out.bin_capacity)
-        curve = torch.stack(losses) if losses else torch.zeros(0, device=scale.device)
+            return total, _indicators(out)
+
+        curve, renders = _optimize(opt, cfg.optimization_steps_hand, loss_step, scale.device)
         return PoseParams(scale.detach(), trans.detach(), quat.detach()), curve, renders
+
+    # phase 1.5: object transform + noise -------------------------------- #
+
+    def _obj_phase(self, obj: PoseParams, noise_pred: torch.Tensor, latents: torch.Tensor,
+                   targets: GuidanceTargets, sched: FlowMatchSchedule, step_i: int):
+        cfg = self.config
+        lrs = cfg.obj_2half_lrs
+        dev = latents.device
+        scale, trans, quat = (x.detach().clone().requires_grad_(True) for x in obj)
+        noise = noise_pred.detach().clone().requires_grad_(True)
+        # torch decays p by lr*wd before the Adam step; the reference adds
+        # wd*p to the update: the same arithmetic
+        opt = torch.optim.AdamW(
+            [{"params": [scale], "lr": lrs.scale},
+             {"params": [trans], "lr": lrs.trans},
+             {"params": [quat], "lr": lrs.rot},
+             {"params": [noise], "lr": cfg.noise_obj_lr1}], eps=1e-4, weight_decay=0.01)
+        xyz, bbox = self._grid(cfg.octree_resolution, dev)
+
+        def loss_step():
+            mesh, _, n_sel = self._decode(noise, latents, sched, step_i, xyz, bbox)
+            tmesh = _transform_object(mesh, targets, PoseParams(scale, trans, quat))
+            vn = vertex_normals(tmesh)
+            n01, disp01, out = render_normal_and_disparity(
+                self.camera, tmesh.verts, tmesh.faces, vn, tmesh.face_mask,
+                fov_deg=targets.fov_deg, device=dev, **self._raster_kw())
+            edges, emask = mesh_edges(tmesh.faces, tmesh.face_mask)
+            total = (
+                1.0 * mesh_edge_loss(tmesh.verts, edges, emask)
+                + 10.0 * normal_alignment_loss(n01, targets.moge_normal, targets.obj_mask)
+                + 10.0 * masked_l1(disp01, targets.moge_disp, targets.obj_mask)
+                + 100.0 * binary_cross_entropy(out.alpha, targets.obj_mask)
+                + 1e-3 * verts_reg_loss(tmesh.verts, tmesh.vert_mask)
+                + 1e-2 * torch.mean(trans ** 2)
+            )
+            return total, _indicators(out, n_sel)
+
+        curve, renders = _optimize(opt, cfg.optimization_steps_scale, loss_step, dev)
+        return (PoseParams(scale.detach(), trans.detach(), quat.detach()), noise.detach(),
+                curve, renders)
+
+    # phase 2: joint ----------------------------------------------------- #
+
+    def _joint_phase(self, hand: PoseParams, obj: PoseParams, noise_pred: torch.Tensor,
+                     latents: torch.Tensor, targets: GuidanceTargets,
+                     sched: FlowMatchSchedule, step_i: int, near_end: bool):
+        cfg = self.config
+        h_lrs, o_lrs = cfg.phase2_hand_lrs, cfg.obj_lrs
+        dev = latents.device
+        hp = PoseParams(*(x.detach().clone().requires_grad_(True) for x in hand))
+        op = PoseParams(*(x.detach().clone().requires_grad_(True) for x in obj))
+        noise = noise_pred.detach().clone().requires_grad_(True)
+        opt = torch.optim.AdamW(
+            [{"params": [hp.scale], "lr": h_lrs.scale},
+             {"params": [hp.trans], "lr": h_lrs.trans},
+             {"params": [hp.quat], "lr": h_lrs.rot},
+             {"params": [op.scale], "lr": o_lrs.scale},
+             {"params": [op.trans], "lr": o_lrs.trans},
+             {"params": [op.quat], "lr": o_lrs.rot},
+             {"params": [noise], "lr": cfg.noise_obj_lr2}], eps=1e-4, weight_decay=0.01)
+        xyz, bbox = self._grid(cfg.octree_resolution, dev)
+        hoi_mask = targets.hand_mask | targets.obj_mask
+        n_hand_v, n_hand_f = targets.mano_verts_moge.shape[0], targets.mano_faces.shape[0]
+        hand_vmask = torch.ones(n_hand_v, device=dev)
+        hand_fmask = torch.ones(n_hand_f, device=dev)
+
+        def loss_step():
+            hand_verts = _transform_hand(targets, hp)
+            h_terms, _ = _hand_render_losses(hand_verts, targets, self.camera,
+                                             self._hand_raster_kw(), with_sil=False)
+            hand_loss = (
+                1e-4 * h_terms["kps2d"]
+                + 10.0 * h_terms["normal"]
+                + 10.0 * h_terms["disp"]
+                + 1e-2 * torch.mean(hp.trans ** 2)
+            )
+
+            mesh, sdf, n_sel = self._decode(noise, latents, sched, step_i, xyz, bbox)
+            tmesh = _transform_object(mesh, targets, op)
+
+            # attraction: squared NN distances hand -> object, clamp(d - 1cm);
+            # the gradient flows through the hand verts only
+            d2, _ = nn_sqdist(hand_verts, tmesh.verts.detach(), tmesh.vert_mask)
+            # an empty object mesh leaves huge sentinel distances: clamp, and
+            # zero the term
+            has_obj = tmesh.vert_mask.sum() > 0
+            d2 = torch.where(has_obj, d2.clamp(max=1e6), torch.zeros_like(d2))
+            distance_loss = attraction_loss(d2, margin=0.01)
+
+            # the count is gradient-free; away from the end its weight is 1e-9,
+            # numerically irrelevant, so it is computed only near the end
+            if cfg.use_intersection_loss and near_end:
+                inter = _intersection_count(
+                    hand_verts.detach(), targets.mano_faces,
+                    PaddedMesh(*(x.detach() for x in mesh)), tmesh.verts.detach(),
+                    sdf.detach(), bbox, cfg.octree_resolution, targets,
+                    PoseParams(*(x.detach() for x in op)))
+            else:
+                inter = torch.zeros((), device=dev)
+            if near_end:
+                w_inter = torch.where(d2.mean() < 0.001, 1e-5, 1e-9)
+            else:
+                w_inter = 1e-9
+
+            hoi = _join_meshes(hand_verts, targets.mano_faces, hand_vmask, hand_fmask, tmesh)
+            vn = vertex_normals(hoi)
+            n01, disp01, out = render_normal_and_disparity(
+                self.camera, hoi.verts, hoi.faces, vn, hoi.face_mask,
+                fov_deg=targets.fov_deg, device=dev, **self._raster_kw())
+
+            edges, emask = mesh_edges(tmesh.faces, tmesh.face_mask)
+            total = (
+                w_inter * inter
+                + 10.0 * distance_loss
+                + 10.0 * normal_alignment_loss(n01, targets.moge_normal, hoi_mask)
+                + 10.0 * masked_l1(disp01, targets.moge_disp)
+                + 10.0 * binary_cross_entropy(out.alpha, hoi_mask)
+                + 1e-3 * verts_reg_loss(tmesh.verts, tmesh.vert_mask)
+                + 1.0 * mesh_edge_loss(tmesh.verts, edges, emask)
+                + 1e-3 * torch.mean(op.trans ** 2)
+                + 1e-3 * hand_loss
+            )
+            return total, _indicators(out, n_sel)
+
+        curve, renders = _optimize(opt, cfg.optimization_steps_joint, loss_step, dev)
+        return (PoseParams(*(x.detach() for x in hp)), PoseParams(*(x.detach() for x in op)),
+                noise.detach(), curve, renders)
 
     # main loop ----------------------------------------------------------- #
 
@@ -269,12 +554,6 @@ class GuidedSampler:
         or drawn from ``generator``; the models must already lie on
         ``device``."""
         cfg = self.config
-        if cfg.optimization_steps_scale > 0 or cfg.optimization_steps_joint > 0:
-            raise NotImplementedError(
-                "the object phase (optimization_steps_scale) and the joint phase "
-                "(optimization_steps_joint) are not ported yet: they differentiate "
-                "through the ShapeVAE decode and need the flash-attention backward "
-                "kernel. Set both to 0 to run the DiT loop, the hand phase and the export.")
         dev = resolve_device(device)
         n = cfg.num_inference_steps
         sched = self._schedule(n)
@@ -287,7 +566,7 @@ class GuidedSampler:
         cond_cat = torch.cat([cond_main, uncond_main], dim=0).to(dev)
 
         loss_log: dict = {}
-        seconds: dict = {"dit_steps": [], "hand": 0.0}
+        seconds: dict = {"dit_steps": [], "hand": 0.0, "obj": 0.0, "joint": 0.0}
         noise_pred = torch.zeros_like(latents)
         for i in range(n):
             # CFG decay after guidance starts
@@ -303,13 +582,25 @@ class GuidedSampler:
             _sync(dev)
             seconds["dit_steps"].append(time.perf_counter() - t0)
 
+            t0 = time.perf_counter()
             if i == cfg.handopt_start_step:
-                t0 = time.perf_counter()
                 hand, curve, renders = self._hand_phase(hand, targets)
+                tag, phase = "hand", "hand"
+            elif i == cfg.handopt_start_step + 1:
+                obj, noise_pred, curve, renders = self._obj_phase(
+                    obj, noise_pred, latents, targets, sched, i)
+                tag, phase = "obj", "obj"
+            elif i >= cfg.handopt_start_step + 2:
+                hand, obj, noise_pred, curve, renders = self._joint_phase(
+                    hand, obj, noise_pred, latents, targets, sched, i, near_end=i >= n - 3)
+                tag, phase = f"joint_{i}", "joint"
+            else:
+                tag = None
+            if tag is not None:
                 _sync(dev)
-                seconds["hand"] = time.perf_counter() - t0
-                loss_log["hand"] = curve
-                self._warn_capacity("hand", renders)
+                seconds[phase] += time.perf_counter() - t0
+                loss_log[tag] = curve
+                self._warn_capacity(tag, renders)
 
             latents = step(sched, i, noise_pred, latents)[0]
 

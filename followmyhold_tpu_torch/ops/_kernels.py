@@ -29,12 +29,14 @@ _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # PyTorch version's separate multiplies and adds do (see raster_common.cuh).
 _SOURCES = {
     "flash_attention_fwd.cu": [],
+    "flash_attention_bwd.cu": [],
     "raster_fwd.cu": ["-fmad=false"],
     "raster_bwd.cu": ["-fmad=false"],
 }
 _HEADERS = ["raster_common.cuh"]
 
-LAUNCH_COUNTS = {"flash_attention_fwd": 0, "raster_fwd": 0, "raster_bwd": 0}
+LAUNCH_COUNTS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "raster_fwd": 0,
+                 "raster_bwd": 0}
 
 _lib = None
 
@@ -121,6 +123,8 @@ def load_library(verbose: bool = False):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fmh_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
     lib.fmh_flash_attention_fwd.restype = i
+    lib.fmh_flash_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f, p]
+    lib.fmh_flash_attention_bwd.restype = i
     lib.fmh_raster_fwd.argtypes = [p, p, p, p, p, p, i, i, i, f, f, f, p]
     lib.fmh_raster_fwd.restype = i
     lib.fmh_raster_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p]

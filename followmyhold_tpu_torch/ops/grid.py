@@ -1,4 +1,5 @@
-"""Dense SDF-query grids."""
+"""Dense SDF-query grids: a static one for the decode, and one over a bbox
+given as tensors for the intersection count."""
 
 from __future__ import annotations
 
@@ -31,3 +32,14 @@ def generate_dense_grid_points(
     xyz = np.stack([xs, ys, zs], axis=-1).reshape(-1, 3)
     return (torch.from_numpy(xyz).to(dev), (n, n, n),
             torch.from_numpy(bbox_max - bbox_min).to(dev))
+
+
+def generate_grid(bbox_min: torch.Tensor, bbox_max: torch.Tensor,
+                  octree_resolution: int) -> torch.Tensor:
+    """(R+1)^3 grid over a bbox given as tensors (a bbox that changes every
+    iteration), 'ij' indexing, flattened [N, 3], on the bbox's device."""
+    n = int(octree_resolution) + 1
+    t = torch.linspace(0.0, 1.0, n, dtype=torch.float32, device=bbox_min.device)
+    axes = [bbox_min[d] + t * (bbox_max[d] - bbox_min[d]) for d in range(3)]
+    xs, ys, zs = torch.meshgrid(*axes, indexing="ij")
+    return torch.stack([xs, ys, zs], dim=-1).reshape(-1, 3)

@@ -249,8 +249,11 @@ def marching_tets(
     g1 = torch.stack([vid // (n * n), (vid // n) % n, vid % n], dim=-1)
     g2 = g1 + torch.as_tensor(_DIRS, device=dev)[dcode]
     g2c = g2.clamp(0, n - 1)
-    s1 = s[g1[:, 0], g1[:, 1], g1[:, 2]]
-    s2 = s[g2c[:, 0], g2c[:, 1], g2c[:, 2]]
+    # through take_rows: padded slots all gather the last key's vertex, and an
+    # advanced-indexing gather's backward serialises such duplicates
+    s_flat = s.reshape(-1)
+    s1 = take_rows(s_flat, (g1[:, 0] * n + g1[:, 1]) * n + g1[:, 2])
+    s2 = take_rows(s_flat, (g2c[:, 0] * n + g2c[:, 1]) * n + g2c[:, 2])
     denom = s1 - s2
     t = s1 / torch.where(denom.abs() < 1e-12, torch.full_like(denom, 1e-12), denom)
     t = t.clamp(0.0, 1.0)

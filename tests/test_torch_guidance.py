@@ -171,7 +171,7 @@ def test_final_hand_pose_matches(both_runs):
         got, want = getattr(t.hand, name).numpy(), getattr(j.hand, name)
         np.testing.assert_allclose(got, want, atol=atol, err_msg=name)
     assert not np.allclose(t.hand.quat.numpy(), [1, 0, 0, 0])   # the pose did move
-    # the object pose is not optimized by the ported phases
+    # with no object or joint steps the object pose is not optimized
     np.testing.assert_array_equal(t.obj.quat.numpy(), np.float32([1, 0, 0, 0]))
 
 
@@ -189,23 +189,6 @@ def test_exported_meshes_match(both_runs):
 def test_run_reports_phase_seconds(both_runs):
     seconds = both_runs["t"].seconds
     assert len(seconds["dit_steps"]) == N_STEPS and seconds["hand"] > 0
-
-
-@pytest.mark.parametrize("field", ["optimization_steps_scale", "optimization_steps_joint"])
-def test_run_raises_for_the_phases_not_ported(both_runs, field):
-    import dataclasses
-
-    sampler = both_runs["tsampler"]
-    config = dataclasses.replace(sampler.config, **{field: 2})
-    sampler = dataclasses.replace(sampler, config=config)
-    cond = torch.from_numpy(both_runs["cond"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        sampler.run(cond, cond, both_runs["ttargets"], (16, 8), device="cpu")
-
-
-def test_default_config_asks_for_the_unported_phases():
-    assert TConfig().optimization_steps_scale > 0 and TConfig().optimization_steps_joint > 0
-    assert TConfig().handopt_start_step == 9 and TConfig().num_inference_steps == 20
 
 
 def test_entry_points_need_an_existing_device(both_runs):
@@ -282,7 +265,7 @@ def test_decode_object_matches(both_runs):
             jnp.asarray(lat), xyz, bbox, RES, 2048, 4096, 128, hier_cf=0)
     sampler = both_runs["tsampler"]
     txyz, tbbox = sampler._grid(RES, torch.device("cpu"))
-    tmesh, tsdf = TG._decode_object(
+    tmesh, tsdf, _ = TG._decode_object(
         both_runs["tvae"], sampler._schedule(N_STEPS), 3, torch.from_numpy(eps),
         torch.from_numpy(lat), txyz, tbbox, RES, 2048, 4096, 128)
     np.testing.assert_allclose(tsdf.numpy(), np.asarray(jsdf), atol=1e-4)

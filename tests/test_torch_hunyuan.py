@@ -118,7 +118,7 @@ def test_vae_query_logits_chunked_matches(chunk, group):
     got = TH.vae_query_logits(tvae, torch.from_numpy(lat), torch.from_numpy(pts),
                               chunk=chunk, group=group)
     assert got.shape == (1, 50) and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=ATOL)
 
 
 def test_bridge_fills_every_parameter_and_rejects_mismatches():

@@ -44,8 +44,8 @@ def test_source_imports_nothing_of_jax(path):
 
 def test_kernel_sources_exist_and_are_not_built_at_import():
     csrc = PORT / "csrc"
-    for name in ("flash_attention_fwd.cu", "raster_fwd.cu", "raster_bwd.cu",
-                 "raster_common.cuh"):
+    for name in ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "raster_fwd.cu",
+                 "raster_bwd.cu", "raster_common.cuh"):
         assert (csrc / name).is_file(), name
     # importing the wrappers must not need nvcc, ctypes libraries or a GPU
     from followmyhold_tpu_torch.ops import _kernels, attention, rasterizer  # noqa: F401
@@ -56,8 +56,8 @@ def test_kernel_sources_exist_and_are_not_built_at_import():
 def test_launch_counters_reset():
     from followmyhold_tpu_torch.ops import _kernels
 
-    assert set(_kernels.launch_counts()) == {"flash_attention_fwd", "raster_fwd",
-                                             "raster_bwd"}
+    assert set(_kernels.launch_counts()) == {"flash_attention_fwd", "flash_attention_bwd",
+                                             "raster_fwd", "raster_bwd"}
     _kernels.LAUNCH_COUNTS["raster_fwd"] += 3
     _kernels.reset_launch_counts()
     assert all(v == 0 for v in _kernels.launch_counts().values())
