@@ -33,7 +33,9 @@ Tolerances, and why:
   where the kernel does. The sums over up to 8192 rows run in another order
   (tensor-core f32 accumulators against torch's matmuls), and dk and dv are
   rounded to bf16 on both sides (relative 2^-8), so one rounding step of the
-  largest entry is the scale of the difference.
+  largest entry is the scale of the difference. Neither pass uses atomics, so
+  dk and dv must be bit-identical with and without the dq pass, and two calls
+  on the same inputs must give the same bits.
 - rasterizer forward: winner slots must agree on all but 0.1 % of the pixels
   (the arithmetic is bit-identical by construction; the margin is for depth
   ties). Where they agree, w1, w2 to 1e-5 and vis to 1e-4 (the visibility
@@ -183,6 +185,11 @@ def check_flash_attention_backward(dev) -> dict:
             torch.cuda.synchronize()
             if not (torch.equal(dk, dk_nq) and torch.equal(dv, dv_nq)):
                 fail(f"flash backward {label}: dk/dv change when the dq pass is skipped")
+            # no atomics in either pass: a second call gives the same bits
+            dq_again, dk_again, _ = A.flash_attention_backward(q, k, v, do, lse, dsum, scale)
+            if not (torch.equal(dq, dq_again) and torch.equal(dk, dk_again)):
+                fail(f"flash backward {label}: two calls on the same inputs differ")
+            del dq_again, dk_again
             ref = _plain_backward_by_slice(A, q, k, v, do, lse, dsum, scale)
             errs = {}
             for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
@@ -203,22 +210,27 @@ def check_flash_attention_backward(dev) -> dict:
         lib_ms = cuda_ms(lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do,
                                                      retain_graph=True), 2, 10)
         del qg, kg, vg, sdpa_out
-        flops = 10.0 * B * H * N * M * D   # five products of 2*N*M*D
-        nbytes = (2.0 * B * H * D * (2 * N + 2 * M)   # q, do, k, v in
-                  + 4.0 * B * H * N * 2               # lse, dsum in
-                  + 4.0 * B * H * N * D               # dq out (f32)
-                  + 2.0 * B * H * M * D * 2)          # dk, dv out
+        product = 2.0 * B * H * N * M * D
+        flops, flops_no_dq = 5 * product, 4 * product   # dq adds dS K
+        nbytes_no_dq = (2.0 * B * H * D * (2 * N + 2 * M)   # q, do, k, v in
+                        + 4.0 * B * H * N * 2               # lse, dsum in
+                        + 2.0 * B * H * M * D * 2)          # dk, dv out
+        nbytes = nbytes_no_dq + 4.0 * B * H * N * D         # dq out (f32)
         t_ops, t_bytes = flops / _BF16_FLOPS * 1e3, nbytes / _HBM_BYTES * 1e3
+        bound_no_dq = max(flops_no_dq / _BF16_FLOPS, nbytes_no_dq / _HBM_BYTES) * 1e3
         per_shape.append(dict(
             shape=label, dims=[B, H, N, M, D], max_abs_err=max(errs.values()),
             errs=errs, ms=ms, ms_without_dq=ms_no_dq, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            tflops=flops / ms / 1e9))
+            bound_ms_without_dq=bound_no_dq,
+            tflops=flops / ms / 1e9, tflops_without_dq=flops_no_dq / ms_no_dq / 1e9))
         say(f"kernel flash_attention_bwd {label} {[B, H, N, M, D]}: err dq {errs['dq']:.3e} "
-            f"dk {errs['dk']:.3e} dv {errs['dv']:.3e} kernel {ms:.3f} ms (without dq "
-            f"{ms_no_dq:.3f} ms) plain {plain_ms:.3f} ms sdpa backward {lib_ms:.3f} ms "
-            f"bound {max(t_ops, t_bytes):.3f} ms")
+            f"dk {errs['dk']:.3e} dv {errs['dv']:.3e}; kernel {ms:.3f} ms "
+            f"({flops / ms / 1e9:.0f} TFLOP/s, {ms / lib_ms:.2f}x sdpa backward), without dq "
+            f"{ms_no_dq:.3f} ms ({flops_no_dq / ms_no_dq / 1e9:.0f} TFLOP/s, "
+            f"{ms_no_dq / lib_ms:.2f}x); plain {plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms; "
+            f"bound {max(t_ops, t_bytes):.3f} ms, without dq {bound_no_dq:.3f} ms")
         del q, k, v, do, out, lse, dsum, dq, dk, dv, dk_nq, dv_nq
         torch.cuda.empty_cache()
     head = per_shape[0]
@@ -227,7 +239,9 @@ def check_flash_attention_backward(dev) -> dict:
                 replaces="followmyhold_tpu/ops/attention.py:216",
                 max_abs_err=max(s["max_abs_err"] for s in per_shape),
                 ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-                bound_by=head["bound_by"], library_ms=head["library_ms"], shapes=per_shape)
+                bound_by=head["bound_by"], library_ms=head["library_ms"],
+                ms_without_dq=head["ms_without_dq"],
+                bound_ms_without_dq=head["bound_ms_without_dq"], shapes=per_shape)
 
 
 def _tile_inputs(camera, verts, faces, faces_per_tile):

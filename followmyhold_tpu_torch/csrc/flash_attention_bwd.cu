@@ -2,49 +2,79 @@
 // the forward's logsumexp and dsum = rowsum(do * o); bf16 in, f32 statistics.
 //
 // Replaces the TPU kernel `_flash_bwd_fused_kernel` launched by
-// `_flash_backward_pallas` in followmyhold_tpu/ops/attention.py. Per (query
-// row, kv column) it recomputes p = exp(s*scale - lse) from the forward's
-// logsumexp and applies
+// `_flash_backward_pallas` in followmyhold_tpu/ops/attention.py. The TPU
+// kernel walked a head's kv blocks in order on one core and kept the head's
+// f32 dq block resident in fast memory across that sweep. Per (query row, kv
+// column) both recompute p = exp(s*scale - lse) from the forward's logsumexp
+// and apply
 //     dv += p^T do           (p rounded to bf16 first, as the TPU kernel does)
 //     dp  = do v^T
 //     ds  = p * (dp - dsum)
 //     dk += ds^T q * scale   (ds rounded to bf16)
 //     dq += ds k * scale     (ds rounded to bf16, dq kept in f32)
-// with every product on the tensor cores through mma.sync.m16n8k16 (bf16 in,
-// f32 accumulators).
 //
 // What bounds it on this card: operations. Five products of 2*N*M*D flops
 // each per (batch, head) outweigh the bytes of q, k, v, do, o and the three
 // gradients by far more than the card's ~295 flop/byte ridge at the main-path
-// shapes, so the floor is the bf16 tensor-core rate.
+// shapes, so the floor is the bf16 tensor-core rate, which only wgmma reaches.
 //
-// What Hopper lacks, and what the design does about it. The TPU kernel walked
-// the kv blocks in order on one core and kept the f32 dq block of a whole head
-// resident in fast memory across that sweep. Blocks here run in any order and
-// share nothing, so the backward is two passes from one source, both without
-// atomics and deterministic:
-//   - the dk/dv pass runs one block per (batch*head, 64 kv rows) and loops over
-//     query tiles; each warp owns 16 kv rows, so S^T = K Q^T and dP^T = V dO^T
-//     come out with kv rows in the accumulators and feed dv += P^T dO and
-//     dk += dS^T Q without a transpose through shared memory;
-//   - the dq pass runs one block per (batch*head, 64 query rows) and loops over
-//     kv tiles, recomputing S, P, dP and dS (two of the five products twice),
-//     and is skipped when the caller needs no dq (the geo-decoder's queries
-//     come from grid points through frozen weights).
-// The accumulators of S / dP of two adjacent 8-column tiles are exactly the A
-// operand of the next product, so P and dS never touch shared memory. The B
-// operands of the products over the kv or query axis come from ldmatrix.trans.
-// K1's fragment layouts and 16-byte row padding (conflict-free operand reads)
-// are reused. Ragged N and M are masked here: kv columns past M get p = 0
-// (they would feed dq), query rows past N get p = 0 (they must add nothing to
-// dk and dv), and rows past the ends are never stored. Tiles are loaded with
-// plain 16-byte loads; TMA, wgmma and an asynchronous pipeline are later work.
+// Blocks here run in any order and share nothing, so the backward is two
+// passes from one source, both without atomics and deterministic (dq is
+// bit-reproducible): a dk/dv pass over kv rows that loops over query tiles,
+// and a dq pass over query rows that loops over kv tiles and recomputes S and
+// dP (seven products where five are needed). The dq pass is skipped when the
+// caller needs no dq (the geo decoder's queries come from grid points through
+// frozen weights). Ragged N and M are masked here, never padded on the host:
+// kv columns past M get p = 0, query rows past N get p = 0 (they must add
+// nothing to dk and dv), and rows past the ends are never stored.
+//
+// D=64, the head size of the main path (the ShapeVAE's self-attention and
+// the geo decoder's cross-attention), takes the Hopper design. The first
+// design (kept for D=128, below) loaded every tile synchronously between two
+// barriers, ran every product as mma.sync, fed its operands through the math
+// warps' own shared-memory loads, and reached 144-165 TFLOP/s. Here:
+//   - every product is wgmma.m64n64k16 (bf16, f32 accumulators), issued by
+//     one warpgroup for its 64 rows;
+//   - the tiles of the streamed side (Q, dO with lse and dsum in the dk/dv
+//     pass; K, V in the dq pass) arrive through a ring of four stages, two
+//     tiles in flight ahead of the one consumed. cp.async writes each tile
+//     straight into the 128-byte swizzled layout that the wgmma descriptors
+//     name, so no warp copies operands; one block barrier per tile frees the
+//     stage consumed two tiles back;
+//   - S^T = K Q^T and dP^T = V dO^T (S and dP in the dq pass) read the
+//     streamed tile K-major. P^T and dS^T are converted to bf16 in the f32
+//     accumulator registers they came out of, which is the register A-operand
+//     layout of dV += P^T dO and dK += dS^T Q (dQ += dS K); their B operand is
+//     the same streamed tile read MN-major through the transpose bit, so
+//     nothing goes back through shared memory;
+//   - the dk/dv pass keeps its block's K and V rows as register A fragments,
+//     loaded once, which halves the shared-memory reads of S^T and dP^T (an
+//     m64n64k16 with both operands in shared memory reads 4 KB per 32
+//     tensor-cycles, the SM's whole 128 B/clk). The dq pass keeps Q and dO in
+//     shared memory instead: that holds it to 128 registers and two blocks an
+//     SM, which measured faster than the registers' one;
+//   - the dP^T product runs while the exponentials of P^T are taken, and the
+//     dV product while dS^T is formed (wgmma groups are waited on one at a
+//     time);
+//   - the arithmetic between the products runs on the CUDA cores beside
+//     tensor cores that need ~1000 cycles a tile, and is of the same order,
+//     so only the last tile of a ragged length pays for the column mask (it
+//     took a sixth of the dk/dv pass's time when every tile did).
+// D=128 serves only the DiT (run without gradients on the main path). Its
+// dk, dv and P^T, dP^T accumulators of 64 kv rows would take some 190 f32
+// registers a thread, so it keeps the first design: mma.sync.m16n8k16 with
+// synchronous tile loads, four warps of 16 kv rows (32-query tiles), operands
+// through ld32/ldmatrix.trans from padded rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// ------------------------------------------------------------------------- //
+// D=128: mma.sync with synchronous tile loads (the first design)
+// ------------------------------------------------------------------------- //
 
 constexpr int kRows = 64;      // rows a block owns (kv rows or query rows)
 constexpr int kTileN = 64;     // kv rows per tile of the dq pass
@@ -337,14 +367,13 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __
   }
 }
 
-template <int D>
-constexpr int dkdv_block_q() {
-  return D == 128 ? 32 : 64;  // keeps the D=128 accumulators within the registers
-}
+// query rows per tile of the dk/dv pass: keeps the D=128 accumulators within
+// the registers
+constexpr int kDkdvBlockQ = 32;
 
 template <int D>
 size_t dkdv_smem_bytes() {
-  constexpr int BQ = dkdv_block_q<D>();
+  constexpr int BQ = kDkdvBlockQ;
   return sizeof(__nv_bfloat16) * (2 * kRows + 2 * BQ) * (D + kPad) + sizeof(float) * 2 * BQ;
 }
 
@@ -358,7 +387,7 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
            const __nv_bfloat16* dout, const float* lse, const float* dsum, float* dq,
            __nv_bfloat16* dk, __nv_bfloat16* dv, int BH, int N, int M, float scale,
            cudaStream_t st) {
-  constexpr int BQ = dkdv_block_q<D>();
+  constexpr int BQ = kDkdvBlockQ;
   const size_t dkdv_smem = dkdv_smem_bytes<D>();
   const size_t dq_smem = dq_smem_bytes<D>();
   // both above the 48 KB a launch gets without asking at D=128
@@ -385,6 +414,437 @@ int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* 
   return static_cast<int>(err);
 }
 
+// ------------------------------------------------------------------------- //
+// D=64: wgmma with a cp.async ring of swizzled tiles
+// ------------------------------------------------------------------------- //
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kD = 64;                      // head size
+constexpr int kRowBytes = kD * 2;           // a bf16 row: the 128-byte swizzle span
+constexpr int kTile = 64;                   // rows of a warpgroup and of a streamed tile
+constexpr int kGroups = 2;                  // consumer warpgroups per block
+constexpr int kBlockRows = kGroups * kTile;
+constexpr int kThreads = 128 * kGroups;
+constexpr int kStages = 4;                  // ring of streamed tiles
+constexpr int kAhead = kStages - 2;         // tiles in flight ahead of the consumed one
+constexpr int kTileBytes = kTile * kRowBytes;              // 8 KB
+constexpr int kResidentBytes = kGroups * kTileBytes;       // the block's rows of A1 or A2
+constexpr int kStageBytes = 2 * kTileBytes;                // the two streamed tiles
+
+// the dk/dv pass holds its rows in registers, the dq pass in shared memory
+constexpr size_t smem_bytes(bool dq) {
+  return 1024                                              // slack to align the base
+         + (dq ? 2 * kResidentBytes : 0) + kStages * kStageBytes
+         + kStages * 2 * kTile * sizeof(float);            // lse, dsum
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared, asynchronously; zero-filled where !valid
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// cp.async writes through the generic proxy, wgmma reads through the async one
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// rows [r0, r0 + kRows) of a [len, 64] bf16 matrix into the tile at shared
+// address `dst` (1024-byte aligned), 128-byte swizzled: the 16-byte chunk c of
+// row r lands in chunk c ^ (r % 8) of that row. Rows past len are zero.
+template <int kRows>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int r0, int len) {
+  static_assert(kRows * 8 % kThreads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int n = 0; n < kRows * 8 / kThreads; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int r = i >> 3, c = i & 7;
+    const bool in = r0 + r < len;
+    cp_async_16(dst + r * kRowBytes + ((c ^ (r & 7)) << 4),
+                in ? src + static_cast<size_t>(r0 + r) * kD + c * 8 : src, in);
+  }
+}
+
+// wgmma shared-memory descriptors of a swizzled tile (128-byte swizzle, bits
+// 62-63 = 1; addresses and strides in 16-byte units). K-major (each row holds
+// the reduction axis): 8-row groups 1024 bytes apart; a step of 16 along the
+// reduction adds 32 bytes to the start. MN-major (rows are the reduction
+// axis, read through the transpose bit): the 8-row groups along the reduction
+// are 1024 bytes apart; at N=64 the tile is one swizzle atom wide, so the
+// other stride is never used and both are given the same value.
+__device__ __forceinline__ uint64_t desc_field(uint32_t bytes) {
+  return static_cast<uint64_t>((bytes & 0x3FFFF) >> 4);
+}
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return desc_field(addr) | desc_field(16) << 16 | desc_field(1024) << 32 | 1ull << 62;
+}
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+  return desc_field(addr) | desc_field(1024) << 16 | desc_field(1024) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving register reads or writes across a wait
+template <int K>
+__device__ __forceinline__ void keep(float (&r)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void keep(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+#define FMH_WGMMA_D32                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define FMH_WGMMA_ACC32(d)                                                                 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+
+// d[64x64] (+)= A[64x16] B[16x64], both from shared memory, both K-major.
+// `accumulate` = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FMH_WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FMH_WGMMA_ACC32(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64x64] (+)= A[64x16] B[16x64]: A from registers (four bf16 pairs a
+// thread: rows 16w + g and + 8, columns 2t, 2t + 1 and + 8 of each warp's 16
+// rows, mma.sync's A fragment), B from shared memory, K-major or, with
+// kTransB, MN-major. `accumulate` = 0 overwrites d.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FMH_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : FMH_WGMMA_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// A fragments of rows [row, row + 8] (the two of this thread) of a [len, 64]
+// bf16 matrix for the four 16-column steps; rows past len are zero
+__device__ __forceinline__ void load_fragments(uint32_t (&f)[4][4], const bf16* src, int row,
+                                               int len, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row + 8 * h < len;
+    const uint32_t* p =
+        reinterpret_cast<const uint32_t*>(src + static_cast<size_t>(in ? row + 8 * h : 0) * kD) +
+        t;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      f[ks][h] = in ? __ldg(p + 8 * ks) : 0u;          // columns 16ks + 2t
+      f[ks][h + 2] = in ? __ldg(p + 8 * ks + 4) : 0u;  // columns 16ks + 8 + 2t
+    }
+  }
+}
+
+#undef FMH_WGMMA_D32
+#undef FMH_WGMMA_ACC32
+
+// P (or P^T) of one tile from its logits x in place, and its bf16 A
+// fragments: p = exp2(x * sl2 - l) with l = lse * log2(e) of the element's
+// query (the accumulator row in the dq pass, the column in the dk/dv pass).
+// With kMask, columns from `cols_left` on are past the end and get p = 0;
+// only the last tile of a ragged length needs it.
+template <bool kMask, bool kDQ>
+__device__ __forceinline__ void probabilities(float (&x)[32], uint32_t (&pf)[4][4],
+                                              const float* sL, const float (&l_row)[2],
+                                              float sl2, int t, int cols_left) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e, col = 8 * j + 2 * t + (e & 1);
+      const float l = kDQ ? l_row[e >> 1] : sL[col] * kLog2e;
+      x[i] = (!kMask || col < cols_left) ? exp2f(x[i] * sl2 - l) : 0.f;
+    }
+    pf[j >> 1][(j & 1) * 2 + 0] = pack_bf16(x[4 * j + 0], x[4 * j + 1]);
+    pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(x[4 * j + 2], x[4 * j + 3]);
+  }
+}
+
+// Both passes. Rows are what a block owns and keeps for the whole loop (A1,
+// A2), columns what it streams through the ring (B1, B2):
+//   kDQ = false, the dk/dv pass: rows = kv (A1 = K, A2 = V), columns = queries
+//     (B1 = Q, B2 = dO, with lse and dsum per column);
+//   kDQ = true, the dq pass: rows = queries (A1 = Q, A2 = dO, lse and dsum per
+//     row), columns = kv (B1 = K, B2 = V).
+// Per column tile: X = A1 B1^T, Y = A2 B2^T, P = exp(X scale - lse) (zero for
+// columns past their end), dS = P (Y - dsum); the dk/dv pass adds P B2 to dV
+// and dS B1 to dK, the dq pass dS B1 to dQ.
+//
+// The dk/dv pass holds its rows as register A fragments (32 registers more,
+// half the shared-memory reads of an operand pair); the dq pass keeps them in
+// shared memory, which holds it to 128 registers and two blocks an SM.
+//
+// The products of a tile are waited on one group at a time: X while Y runs,
+// Y while dV runs.
+//
+// The wgmma accumulator of a warpgroup's 64 x 64 tile: thread (warp w, lane
+// = 4g + t) holds element i at row 16w + g + 8 * ((i >> 1) & 1), column
+// 8 * (i >> 2) + 2t + (i & 1).
+template <bool kDQ>
+__global__ void __launch_bounds__(kThreads, kDQ ? 2 : 1)
+flash_bwd_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
+                 const bf16* __restrict__ V, const bf16* __restrict__ dO,
+                 const float* __restrict__ LSE, const float* __restrict__ DSUM,
+                 float* __restrict__ dQ, bf16* __restrict__ dK, bf16* __restrict__ dV, int N,
+                 int M, float scale) {
+  constexpr bool kRowsInSmem = kDQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle repeats every 1024 bytes
+  const uint32_t sA1 = base, sA2 = base + kResidentBytes;  // kRowsInSmem only
+  const uint32_t sRing = base + (kRowsInSmem ? 2 * kResidentBytes : 0);
+  float* sStat = reinterpret_cast<float*>(smem_raw + (sRing - raw) +
+                                          kStages * kStageBytes);  // [stage][lse, dsum][64]
+
+  const int bh = blockIdx.y;
+  Q += static_cast<size_t>(bh) * N * kD;
+  dO += static_cast<size_t>(bh) * N * kD;
+  K += static_cast<size_t>(bh) * M * kD;
+  V += static_cast<size_t>(bh) * M * kD;
+  LSE += static_cast<size_t>(bh) * N;
+  DSUM += static_cast<size_t>(bh) * N;
+  const bf16* A1 = kDQ ? Q : K;
+  const bf16* A2 = kDQ ? dO : V;
+  const bf16* B1 = kDQ ? K : Q;
+  const bf16* B2 = kDQ ? V : dO;
+  const int row_len = kDQ ? N : M;
+  const int col_len = kDQ ? M : N;
+  const int r0 = blockIdx.x * kBlockRows;
+  const int n_tiles = (col_len + kTile - 1) / kTile;
+
+  const int tid = threadIdx.x;
+  const int group = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  auto load_columns = [&](int j) {
+    const uint32_t stage = sRing + (j % kStages) * kStageBytes;
+    load_tile<kTile>(stage, B1, j * kTile, col_len);
+    load_tile<kTile>(stage + kTileBytes, B2, j * kTile, col_len);
+    if (!kDQ && tid < 2 * kTile) {
+      const int c = j * kTile + (tid & (kTile - 1));
+      const float* src = tid < kTile ? LSE : DSUM;
+      cp_async_4(smem_u32(sStat + (j % kStages) * 2 * kTile + tid), c < N ? src + c : src,
+                 c < N);
+    }
+  };
+
+  // the block's rows (dq pass) and the first kAhead column tiles, one group each
+  if constexpr (kRowsInSmem) {
+    load_tile<kBlockRows>(sA1, A1, r0, row_len);
+    load_tile<kBlockRows>(sA2, A2, r0, row_len);
+  }
+#pragma unroll
+  for (int j = 0; j < kAhead; ++j) {
+    if (j < n_tiles) load_columns(j);
+    cp_async_commit();
+  }
+
+  // the block's rows this thread holds (dk/dv pass), and, in the dq pass,
+  // their lse (base 2) and dsum
+  const int row = r0 + group * kTile + warp * 16 + g;  // and row + 8
+  uint32_t a1[4][4], a2[4][4];
+  if constexpr (!kRowsInSmem) {
+    load_fragments(a1, A1, row, row_len, t);
+    load_fragments(a2, A2, row, row_len, t);
+  }
+  const uint64_t dA1 = desc_k_major(sA1 + group * kTileBytes);
+  const uint64_t dA2 = desc_k_major(sA2 + group * kTileBytes);
+  float l_row[2] = {0.f, 0.f}, d_row[2] = {0.f, 0.f};
+  if (kDQ) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row + 8 * h < N) {
+        l_row[h] = LSE[row + 8 * h] * kLog2e;
+        d_row[h] = DSUM[row + 8 * h];
+      }
+    }
+  }
+  const float sl2 = scale * kLog2e;
+
+  float acc0[32], acc1[32], x[32], y[32];  // acc0 dV, acc1 dK or dQ; x S, y dP
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = x[i] = y[i] = 0.f;
+  uint32_t pf[4][4], df[4][4];  // bf16 A fragments of P and dS, 16 columns each
+
+  for (int it = 0; it < n_tiles; ++it) {
+    // the stage written here was consumed two tiles back: every thread has
+    // passed the barrier below since then
+    if (it + kAhead < n_tiles) load_columns(it + kAhead);
+    cp_async_commit();
+    cp_async_wait<kAhead>();  // this thread's copies of tile `it` have landed
+    fence_async_proxy();
+    __syncthreads();          // and everyone else's
+
+    const int s = it % kStages;
+    const uint32_t sB1 = sRing + s * kStageBytes, sB2 = sB1 + kTileBytes;
+    const uint64_t dB1 = desc_k_major(sB1), dB2 = desc_k_major(sB2);
+    const float* sL = sStat + s * 2 * kTile;
+    const float* sDs = sL + kTile;
+
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kD / 16; ++ks) {
+      if constexpr (kRowsInSmem) {
+        wgmma_ss(x, dA1 + 2 * ks, dB1 + 2 * ks, ks);
+      } else {
+        wgmma_rs<0>(x, a1[ks], dB1 + 2 * ks, ks);
+      }
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < kD / 16; ++ks) {
+      if constexpr (kRowsInSmem) {
+        wgmma_ss(y, dA2 + 2 * ks, dB2 + 2 * ks, ks);
+      } else {
+        wgmma_rs<0>(y, a2[ks], dB2 + 2 * ks, ks);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // X is done; Y runs on
+    keep(x);
+
+    const int cols_left = col_len - it * kTile;
+    if (cols_left >= kTile) {
+      probabilities<false, kDQ>(x, pf, sL, l_row, sl2, t, cols_left);
+    } else {
+      probabilities<true, kDQ>(x, pf, sL, l_row, sl2, t, cols_left);
+    }
+    if constexpr (!kDQ) {
+      // dV += P^T dO: the 16 columns of step kk are rows 16kk.. of the dO tile
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        wgmma_rs<1>(acc0, pf[kk], desc_mn_major(sB2 + kk * 16 * kRowBytes), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // Y is done; the dV product runs on
+    } else {
+      wgmma_wait<0>();
+    }
+    keep(y);
+
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, col = 8 * j + 2 * t + (e & 1);
+        ds[e] = x[i] * (y[i] - (kDQ ? d_row[e >> 1] : sDs[col]));
+      }
+      df[j >> 1][(j & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+      df[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    // dK += dS^T Q (dk/dv pass) or dQ += dS K (dq pass)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      wgmma_rs<1>(acc1, df[kk], desc_mn_major(sB1 + kk * 16 * kRowBytes), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();  // the stage and the fragments are free again
+    keep(acc1);
+    keep(df);
+    if constexpr (!kDQ) {
+      keep(acc0);
+      keep(pf);
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= row_len) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * t, i = 4 * j + 2 * h;
+      const size_t at = (static_cast<size_t>(bh) * row_len + r) * kD + c;
+      if constexpr (kDQ) {
+        *reinterpret_cast<float2*>(dQ + at) = make_float2(acc1[i] * scale, acc1[i + 1] * scale);
+      } else {
+        *reinterpret_cast<uint32_t*>(dK + at) = pack_bf16(acc1[i] * scale, acc1[i + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dV + at) = pack_bf16(acc0[i], acc0[i + 1]);
+      }
+    }
+  }
+}
+
+template <bool kDQ>
+cudaError_t launch_pass(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                        const float* lse, const float* dsum, float* dq, bf16* dk, bf16* dv,
+                        int BH, int N, int M, float scale, cudaStream_t st) {
+  constexpr size_t smem = smem_bytes(kDQ);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<kDQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((kDQ ? N : M) + kBlockRows - 1) / kBlockRows, BH);
+  flash_bwd_kernel<kDQ><<<grid, kThreads, smem, st>>>(q, k, v, dout, lse, dsum, dq, dk, dv, N,
+                                                      M, scale);
+  return cudaGetLastError();
+}
+
+int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+           const float* dsum, float* dq, bf16* dk, bf16* dv, int BH, int N, int M, float scale,
+           cudaStream_t st) {
+  cudaError_t err = cudaSuccess;
+  if (dk != nullptr) {
+    err = launch_pass<false>(q, k, v, dout, lse, dsum, dq, dk, dv, BH, N, M, scale, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (dq != nullptr) {
+    err = launch_pass<true>(q, k, v, dout, lse, dsum, dq, dk, dv, BH, N, M, scale, st);
+  }
+  return static_cast<int>(err);
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // q, do [BH,N,D] and k, v [BH,M,D] bf16 contiguous; lse, dsum [BH,N] f32.
@@ -407,7 +867,7 @@ extern "C" int fmh_flash_attention_bwd(const void* q, const void* k, const void*
   auto* dkp = static_cast<__nv_bfloat16*>(dk);
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
   if (D == 64) {
-    return launch<64>(qp, kp, vp, dop, lp, dsp, dqp, dkp, dvp, BH, N, M, scale, st);
+    return wg::launch(qp, kp, vp, dop, lp, dsp, dqp, dkp, dvp, BH, N, M, scale, st);
   }
   if (D == 128) {
     return launch<128>(qp, kp, vp, dop, lp, dsp, dqp, dkp, dvp, BH, N, M, scale, st);

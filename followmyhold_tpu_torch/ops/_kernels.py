@@ -38,6 +38,18 @@ _HEADERS = ["raster_common.cuh"]
 LAUNCH_COUNTS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "raster_fwd": 0,
                  "raster_bwd": 0}
 
+# The C signature of every entry point, parameter by parameter: "p" a pointer
+# (or the stream), "i" an int, "f" a float; each returns an int error code.
+# tests/test_torch_kernels_abi.py holds this table against the sources'
+# `extern "C"` declarations, so a changed signature cannot go unbound.
+ENTRY_POINTS = {
+    "fmh_flash_attention_fwd": "pppppiiiifp",
+    "fmh_flash_attention_bwd": "pppppppppiiiifp",
+    "fmh_raster_fwd": "ppppppiiifffp",
+    "fmh_raster_bwd": "ppppppppiiifp",
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
 _lib = None
 
 
@@ -120,15 +132,10 @@ def load_library(verbose: bool = False):
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build_library(verbose=verbose)))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fmh_flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
-    lib.fmh_flash_attention_fwd.restype = i
-    lib.fmh_flash_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, f, p]
-    lib.fmh_flash_attention_bwd.restype = i
-    lib.fmh_raster_fwd.argtypes = [p, p, p, p, p, p, i, i, i, f, f, f, p]
-    lib.fmh_raster_fwd.restype = i
-    lib.fmh_raster_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p]
-    lib.fmh_raster_bwd.restype = i
+    for name, signature in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [_CTYPES[c] for c in signature]
+        fn.restype = ctypes.c_int
     _lib = lib
     return lib
 
