@@ -72,15 +72,26 @@
 
 namespace {
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // ------------------------------------------------------------------------- //
 // D=128: mma.sync with synchronous tile loads (the first design)
 // ------------------------------------------------------------------------- //
+namespace ms {
 
+constexpr int kD = 128;        // head size
 constexpr int kRows = 64;      // rows a block owns (kv rows or query rows)
 constexpr int kTileN = 64;     // kv rows per tile of the dq pass
+constexpr int kBlockQ = 32;    // query rows per tile of the dk/dv pass: keeps its
+                               // accumulators within the registers
 constexpr int kThreads = 128;  // 4 warps x 16 rows
 constexpr int kPad = 8;        // bf16 elements of row padding in shared memory
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kRow = kD + kPad;
 
 __device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4],
                                              uint32_t b0, uint32_t b1) {
@@ -103,45 +114,37 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
                : "r"(addr));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// rows [r0, r0 + n_rows) of a [len, D] matrix into shared memory with padded
+// rows [r0, r0 + n_rows) of a [len, kD] matrix into shared memory with padded
 // rows; rows at or past len are zero
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int r0, int n_rows, int len) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kRow = D + kPad;
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                                          int n_rows, int len) {
+  constexpr int kChunks = kD / 8;  // 16-byte chunks per row
   for (int i = threadIdx.x; i < n_rows * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
     if (r0 + r < len) {
-      x = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * D + c * 8);
+      x = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * kD + c * 8);
     }
     *reinterpret_cast<uint4*>(&dst[r * kRow + c * 8]) = x;
   }
 }
 
-// acc[nt] += A_rows(16 of sA from row `a_row`) . B_rows(nt*8.. of sB)^T over D:
+// acc[nt] += A_rows(16 of sA from row `a_row`) . B_rows(nt*8.. of sB)^T over kD:
 // the A operand is read row-major from sA, the B operand row-major from sB
-template <int D, int NT>
+template <int NT>
 __device__ __forceinline__ void product_rows_by_rows(float (&acc)[NT][4],
                                                      const __nv_bfloat16* sA, int a_row,
                                                      const __nv_bfloat16* sB, int g, int t) {
-  constexpr int kRow = D + kPad;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   }
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
+  for (int ks = 0; ks < kD / 16; ++ks) {
     const __nv_bfloat16* ap = &sA[(a_row + g) * kRow + ks * 16 + t * 2];
     const uint32_t a[4] = {ld32(ap), ld32(ap + 8 * kRow), ld32(ap + 8),
                            ld32(ap + 8 * kRow + 8)};
@@ -154,16 +157,15 @@ __device__ __forceinline__ void product_rows_by_rows(float (&acc)[NT][4],
 }
 
 // acc[dt] += F . sB over the F's columns, F given as bf16 A fragments of KT
-// 16-column tiles, sB a row-major [16*KT, D] tile read transposed
-template <int D, int KT>
-__device__ __forceinline__ void product_frags_by_tile(float (&acc)[D / 8][4],
+// 16-column tiles, sB a row-major [16*KT, kD] tile read transposed
+template <int KT>
+__device__ __forceinline__ void product_frags_by_tile(float (&acc)[kD / 8][4],
                                                       const uint32_t (&f)[KT][4],
                                                       const __nv_bfloat16* sB, int lane) {
-  constexpr int kRow = D + kPad;
 #pragma unroll
   for (int kk = 0; kk < KT; ++kk) {
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
+    for (int dt = 0; dt < kD / 8; ++dt) {
       uint32_t b0, b1;
       ldmatrix_x2_trans(b0, b1, &sB[(kk * 16 + (lane & 15)) * kRow + dt * 8]);
       mma_m16n8k16(acc[dt], f[kk], b0, b1);
@@ -171,15 +173,14 @@ __device__ __forceinline__ void product_frags_by_tile(float (&acc)[D / 8][4],
   }
 }
 
-// dk/dv pass: one block per (bh, 64 kv rows), a loop over query tiles of BQ
-template <int D, int BQ>
+// dk/dv pass: one block per (bh, 64 kv rows), a loop over query tiles of kBlockQ
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
                       const __nv_bfloat16* __restrict__ V, const __nv_bfloat16* __restrict__ dO,
                       const float* __restrict__ LSE, const float* __restrict__ DSUM,
                       __nv_bfloat16* __restrict__ dK, __nv_bfloat16* __restrict__ dV,
                       int N, int M, float scale) {
-  constexpr int kRow = D + kPad;
+  constexpr int BQ = kBlockQ;
   constexpr int NT = BQ / 8;   // 8-column accumulator tiles per query tile
   constexpr int KT = BQ / 16;  // 16-column operand tiles per query tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -197,21 +198,21 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
   const int g = lane >> 2, t = lane & 3;
   const int wr = warp * 16;
 
-  Q += static_cast<size_t>(bh) * N * D;
-  dO += static_cast<size_t>(bh) * N * D;
-  K += static_cast<size_t>(bh) * M * D;
-  V += static_cast<size_t>(bh) * M * D;
-  dK += static_cast<size_t>(bh) * M * D;
-  dV += static_cast<size_t>(bh) * M * D;
+  Q += static_cast<size_t>(bh) * N * kD;
+  dO += static_cast<size_t>(bh) * N * kD;
+  K += static_cast<size_t>(bh) * M * kD;
+  V += static_cast<size_t>(bh) * M * kD;
+  dK += static_cast<size_t>(bh) * M * kD;
+  dV += static_cast<size_t>(bh) * M * kD;
   LSE += static_cast<size_t>(bh) * N;
   DSUM += static_cast<size_t>(bh) * N;
 
-  load_tile<D>(sK, K, kv0, kRows, M);
-  load_tile<D>(sV, V, kv0, kRows, M);
+  load_tile(sK, K, kv0, kRows, M);
+  load_tile(sV, V, kv0, kRows, M);
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[kD / 8][4], dv[kD / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
+  for (int dt = 0; dt < kD / 8; ++dt) {
     dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.f;
     dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.f;
   }
@@ -219,8 +220,8 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
 
   for (int q0 = 0; q0 < N; q0 += BQ) {
     __syncthreads();  // the previous query tile has been consumed
-    load_tile<D>(sQ, Q, q0, BQ, N);
-    load_tile<D>(sdO, dO, q0, BQ, N);
+    load_tile(sQ, Q, q0, BQ, N);
+    load_tile(sdO, dO, q0, BQ, N);
     for (int i = tid; i < BQ; i += kThreads) {
       const bool in = q0 + i < N;
       sL[i] = in ? LSE[q0 + i] * kLog2e : 0.f;
@@ -230,8 +231,8 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
 
     // S^T = K Q^T and dP^T = V dO^T for this warp's 16 kv rows
     float st[NT][4], dpt[NT][4];
-    product_rows_by_rows<D, NT>(st, sK, wr, sQ, g, t);
-    product_rows_by_rows<D, NT>(dpt, sV, wr, sdO, g, t);
+    product_rows_by_rows<NT>(st, sK, wr, sQ, g, t);
+    product_rows_by_rows<NT>(dpt, sV, wr, sdO, g, t);
 
     // P^T, dS^T; columns are query rows, rows past N contribute nothing
     uint32_t pf[KT][4], dsf[KT][4];
@@ -251,37 +252,35 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* 
     }
 
     // dV += P^T dO, dK += dS^T Q (products over the tile's query rows)
-    product_frags_by_tile<D, KT>(dv, pf, sdO, lane);
-    product_frags_by_tile<D, KT>(dk, dsf, sQ, lane);
+    product_frags_by_tile<KT>(dv, pf, sdO, lane);
+    product_frags_by_tile<KT>(dk, dsf, sQ, lane);
   }
 
   const int r0 = kv0 + wr + g, r1 = r0 + 8;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
+  for (int dt = 0; dt < kD / 8; ++dt) {
     const int c = dt * 8 + t * 2;
     if (r0 < M) {
-      *reinterpret_cast<uint32_t*>(dK + static_cast<size_t>(r0) * D + c) =
+      *reinterpret_cast<uint32_t*>(dK + static_cast<size_t>(r0) * kD + c) =
           pack_bf16(dk[dt][0] * scale, dk[dt][1] * scale);
-      *reinterpret_cast<uint32_t*>(dV + static_cast<size_t>(r0) * D + c) =
+      *reinterpret_cast<uint32_t*>(dV + static_cast<size_t>(r0) * kD + c) =
           pack_bf16(dv[dt][0], dv[dt][1]);
     }
     if (r1 < M) {
-      *reinterpret_cast<uint32_t*>(dK + static_cast<size_t>(r1) * D + c) =
+      *reinterpret_cast<uint32_t*>(dK + static_cast<size_t>(r1) * kD + c) =
           pack_bf16(dk[dt][2] * scale, dk[dt][3] * scale);
-      *reinterpret_cast<uint32_t*>(dV + static_cast<size_t>(r1) * D + c) =
+      *reinterpret_cast<uint32_t*>(dV + static_cast<size_t>(r1) * kD + c) =
           pack_bf16(dv[dt][2], dv[dt][3]);
     }
   }
 }
 
 // dq pass: one block per (bh, 64 query rows), a loop over kv tiles of 64
-template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __restrict__ K,
                     const __nv_bfloat16* __restrict__ V, const __nv_bfloat16* __restrict__ dO,
                     const float* __restrict__ LSE, const float* __restrict__ DSUM,
                     float* __restrict__ dQ, int N, int M, float scale) {
-  constexpr int kRow = D + kPad;
   constexpr int NT = kTileN / 8;
   constexpr int KT = kTileN / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -297,16 +296,16 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __
   const int g = lane >> 2, t = lane & 3;
   const int wr = warp * 16;
 
-  Q += static_cast<size_t>(bh) * N * D;
-  dO += static_cast<size_t>(bh) * N * D;
-  dQ += static_cast<size_t>(bh) * N * D;
-  K += static_cast<size_t>(bh) * M * D;
-  V += static_cast<size_t>(bh) * M * D;
+  Q += static_cast<size_t>(bh) * N * kD;
+  dO += static_cast<size_t>(bh) * N * kD;
+  dQ += static_cast<size_t>(bh) * N * kD;
+  K += static_cast<size_t>(bh) * M * kD;
+  V += static_cast<size_t>(bh) * M * kD;
   LSE += static_cast<size_t>(bh) * N;
   DSUM += static_cast<size_t>(bh) * N;
 
-  load_tile<D>(sQ, Q, q0, kRows, N);
-  load_tile<D>(sdO, dO, q0, kRows, N);
+  load_tile(sQ, Q, q0, kRows, N);
+  load_tile(sdO, dO, q0, kRows, N);
 
   // the two query rows this thread holds; rows past N are never stored
   const int row0 = q0 + wr + g, row1 = row0 + 8;
@@ -316,21 +315,21 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __
   const float ds1 = row1 < N ? DSUM[row1] : 0.f;
   const float sl2 = scale * kLog2e;
 
-  float dq[D / 8][4];
+  float dq[kD / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
+  for (int dt = 0; dt < kD / 8; ++dt) {
     dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
   }
 
   for (int kv0 = 0; kv0 < M; kv0 += kTileN) {
     __syncthreads();  // the previous kv tile has been consumed
-    load_tile<D>(sK, K, kv0, kTileN, M);
-    load_tile<D>(sV, V, kv0, kTileN, M);
+    load_tile(sK, K, kv0, kTileN, M);
+    load_tile(sV, V, kv0, kTileN, M);
     __syncthreads();
 
     float s[NT][4], dp[NT][4];
-    product_rows_by_rows<D, NT>(s, sQ, wr, sK, g, t);
-    product_rows_by_rows<D, NT>(dp, sdO, wr, sV, g, t);
+    product_rows_by_rows<NT>(s, sQ, wr, sK, g, t);
+    product_rows_by_rows<NT>(dp, sdO, wr, sV, g, t);
 
     // dS = P (dP - dsum); kv columns past M are zero (they would feed dq)
     uint32_t dsf[KT][4];
@@ -350,69 +349,56 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ Q, const __nv_bfloat16* __
     }
 
     // dQ += dS K (a product over the tile's kv rows)
-    product_frags_by_tile<D, KT>(dq, dsf, sK, lane);
+    product_frags_by_tile<KT>(dq, dsf, sK, lane);
   }
 
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
+  for (int dt = 0; dt < kD / 8; ++dt) {
     const int c = dt * 8 + t * 2;
     if (row0 < N) {
-      *reinterpret_cast<float2*>(dQ + static_cast<size_t>(row0) * D + c) =
+      *reinterpret_cast<float2*>(dQ + static_cast<size_t>(row0) * kD + c) =
           make_float2(dq[dt][0] * scale, dq[dt][1] * scale);
     }
     if (row1 < N) {
-      *reinterpret_cast<float2*>(dQ + static_cast<size_t>(row1) * D + c) =
+      *reinterpret_cast<float2*>(dQ + static_cast<size_t>(row1) * kD + c) =
           make_float2(dq[dt][2] * scale, dq[dt][3] * scale);
     }
   }
 }
 
-// query rows per tile of the dk/dv pass: keeps the D=128 accumulators within
-// the registers
-constexpr int kDkdvBlockQ = 32;
+// both above the 48 KB a launch gets without asking
+constexpr size_t kDkdvSmem =
+    sizeof(__nv_bfloat16) * (2 * kRows + 2 * kBlockQ) * kRow + sizeof(float) * 2 * kBlockQ;
+constexpr size_t kDqSmem = sizeof(__nv_bfloat16) * (2 * kRows + 2 * kTileN) * kRow;
 
-template <int D>
-size_t dkdv_smem_bytes() {
-  constexpr int BQ = kDkdvBlockQ;
-  return sizeof(__nv_bfloat16) * (2 * kRows + 2 * BQ) * (D + kPad) + sizeof(float) * 2 * BQ;
-}
-
-template <int D>
-size_t dq_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (2 * kRows + 2 * kTileN) * (D + kPad);
-}
-
-template <int D>
 int launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
            const __nv_bfloat16* dout, const float* lse, const float* dsum, float* dq,
            __nv_bfloat16* dk, __nv_bfloat16* dv, int BH, int N, int M, float scale,
            cudaStream_t st) {
-  constexpr int BQ = kDkdvBlockQ;
-  const size_t dkdv_smem = dkdv_smem_bytes<D>();
-  const size_t dq_smem = dq_smem_bytes<D>();
-  // both above the 48 KB a launch gets without asking at D=128
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D, BQ>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(dkdv_smem));
+                                         static_cast<int>(kDkdvSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(dq_smem));
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kDqSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dk != nullptr) {
     const dim3 grid((M + kRows - 1) / kRows, BH);
-    flash_bwd_dkdv_kernel<D, BQ><<<grid, kThreads, dkdv_smem, st>>>(
-        q, k, v, dout, lse, dsum, dk, dv, N, M, scale);
+    flash_bwd_dkdv_kernel<<<grid, kThreads, kDkdvSmem, st>>>(q, k, v, dout, lse, dsum, dk, dv,
+                                                              N, M, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (dq != nullptr) {
     const dim3 grid((N + kRows - 1) / kRows, BH);
-    flash_bwd_dq_kernel<D><<<grid, kThreads, dq_smem, st>>>(
-        q, k, v, dout, lse, dsum, dq, N, M, scale);
+    flash_bwd_dq_kernel<<<grid, kThreads, kDqSmem, st>>>(q, k, v, dout, lse, dsum, dq, N, M,
+                                                         scale);
     err = cudaGetLastError();
   }
   return static_cast<int>(err);
 }
+
+}  // namespace ms
 
 // ------------------------------------------------------------------------- //
 // D=64: wgmma with a cp.async ring of swizzled tiles
@@ -433,11 +419,12 @@ constexpr int kTileBytes = kTile * kRowBytes;              // 8 KB
 constexpr int kResidentBytes = kGroups * kTileBytes;       // the block's rows of A1 or A2
 constexpr int kStageBytes = 2 * kTileBytes;                // the two streamed tiles
 
-// the dk/dv pass holds its rows in registers, the dq pass in shared memory
+// the dk/dv pass holds its rows in registers and streams lse and dsum with
+// its columns; the dq pass keeps its rows, and their lse and dsum, to itself
 constexpr size_t smem_bytes(bool dq) {
   return 1024                                              // slack to align the base
-         + (dq ? 2 * kResidentBytes : 0) + kStages * kStageBytes
-         + kStages * 2 * kTile * sizeof(float);            // lse, dsum
+         + (dq ? 2 * kResidentBytes : kStages * 2 * kTile * sizeof(float))
+         + kStages * kStageBytes;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -870,7 +857,7 @@ extern "C" int fmh_flash_attention_bwd(const void* q, const void* k, const void*
     return wg::launch(qp, kp, vp, dop, lp, dsp, dqp, dkp, dvp, BH, N, M, scale, st);
   }
   if (D == 128) {
-    return launch<128>(qp, kp, vp, dop, lp, dsp, dqp, dkp, dvp, BH, N, M, scale, st);
+    return ms::launch(qp, kp, vp, dop, lp, dsp, dqp, dkp, dvp, BH, N, M, scale, st);
   }
   return -1;
 }
