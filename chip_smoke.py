@@ -7,7 +7,8 @@
 Phases, each printing one line; any failure ends the run with a non-zero code:
 
 1. device   require CUDA; print the card's name and power limit.
-2. build    compile the CUDA kernels from followmyhold_tpu_torch/csrc with nvcc.
+2. build    compile the CUDA kernels from followmyhold_tpu_torch/csrc with nvcc;
+            ptxas must report no spills and no serialised wgmma.
 3. kernels  call every kernel's wrapper at the shapes the main path gives it
             and hold the result against its plain PyTorch version on the same
             inputs; time kernel, plain version and, for attention, PyTorch's
@@ -25,7 +26,14 @@ Tolerances, and why:
 - flash attention O (bf16): 1e-2 * max|ref| + 1e-3. The kernel rounds the
   unnormalised probabilities to bf16 before the second product and divides by
   the row sum afterwards; the plain version normalises first. Both then round
-  O to bf16 (relative 2^-8).
+  O to bf16 (relative 2^-8). That bound alone could pass a kernel that drops
+  one kv tile, so O is also held to ||O - ref||_F <= 2^-8 ||ref||_F (one bf16
+  rounding step of the whole tensor), and the script checks in every run
+  that this limit rejects the plain O with one 32-row kv tile left out. Two
+  calls must give the same bits (no atomics), and the checked call follows a
+  call on other inputs, whose freed outputs the allocator hands to it: a row
+  the kernel fails to write then holds a wrong O and lse. A ragged D=64
+  shape runs the masks.
 - flash attention logsumexp (f32): 2e-3 absolute: exp2/log in another order
   and f32 sums over up to 4442 columns.
 - flash attention backward (dq f32, dk and dv bf16): 2e-2 * max|ref| + 1e-3
@@ -62,6 +70,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -105,13 +114,24 @@ def cuda_ms(fn, warmup: int, iters: int) -> float:
 # kernel checks
 # --------------------------------------------------------------------------- #
 
+# relative Frobenius limit of the forward's O (one bf16 rounding step of the
+# whole tensor), and the kv rows of the tile whose omission it must catch
+_FWD_REL_LIMIT = 2.0 ** -8
+_FWD_FAULT_ROWS = 32
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
 def check_flash_attention(dev) -> dict:
     from followmyhold_tpu_torch.ops import attention as A
 
-    shapes = [  # (label, B, H, N, M, D)
-        ("dit_joint", 2, 16, 4442, 4442, 128),
+    shapes = [  # (label, B, H, N, M, D); the first has most launches on the main path
         ("vae_self", 1, 16, 3072, 3072, 64),
         ("geo_cross", 4, 16, 8192, 3072, 64),
+        ("dit_joint", 2, 16, 4442, 4442, 128),
+        ("ragged", 1, 16, 3000, 2900, 64),   # the kv mask, zero-filled rows, rows past N
     ]
     per_shape = []
     for label, B, H, N, M, D in shapes:
@@ -121,16 +141,40 @@ def check_flash_attention(dev) -> dict:
         v = torch.randn((B, H, M, D), generator=gen, device=dev).bfloat16()
         scale = 1.0 / math.sqrt(D)
         with torch.no_grad():
+            # a call on other inputs first: the allocator hands its freed blocks
+            # to the checked call, so a row that call fails to write holds
+            # another O and lse, not a correct one
+            poison = A.flash_attention_forward(-q, k, v, scale)
+            del poison
             out, lse = A.flash_attention_forward(q, k, v, scale)
+            again = A.flash_attention_forward(q, k, v, scale)
             torch.cuda.synchronize()
+            wrong = []
+            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+                wrong.append("two calls on the same inputs differ")  # no atomics
+            del again
             ref, ref_lse = A.flash_attention_plain(q, k, v, scale)
             err_o = (out.float() - ref.float()).abs().max().item()
+            rel = _rel_err(out, ref)
             err_l = (lse - ref_lse).abs().max().item()
             tol_o = 1e-2 * ref.float().abs().max().item() + 1e-3
-            if not (math.isfinite(err_o) and err_o <= tol_o):
-                fail(f"flash attention {label}: O differs by {err_o} (tolerance {tol_o})")
+            if not (math.isfinite(err_o) and err_o <= tol_o and rel <= _FWD_REL_LIMIT):
+                wrong.append(f"O max |diff| {err_o} (tolerance {tol_o}), relative {rel} "
+                             f"(limit {_FWD_REL_LIMIT})")
             if not (math.isfinite(err_l) and err_l <= 2e-3):
-                fail(f"flash attention {label}: logsumexp differs by {err_l} (tolerance 2e-3)")
+                wrong.append(f"logsumexp differs by {err_l} (tolerance 2e-3)")
+            # the limit must reject O without one kv tile (rows [b, b + 32))
+            b = M // 2 // 64 * 64
+            kept = torch.cat([torch.arange(b, device=dev),
+                              torch.arange(b + _FWD_FAULT_ROWS, M, device=dev)])
+            fault = _rel_err(A.flash_attention_plain(q, k[:, :, kept], v[:, :, kept], scale)[0],
+                             ref)
+            if not fault > _FWD_REL_LIMIT:
+                wrong.append(f"the relative limit passes O without one {_FWD_FAULT_ROWS}-row "
+                             f"kv tile ({fault})")
+            if wrong:
+                fail(f"flash attention {label}: " + "; ".join(wrong))
+            del ref, ref_lse
             ms = cuda_ms(lambda: A.flash_attention_forward(q, k, v, scale), 2, 10)
             plain_ms = cuda_ms(lambda: A.flash_attention_plain(q, k, v, scale), 1, 2)
             lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -139,16 +183,19 @@ def check_flash_attention(dev) -> dict:
         nbytes = 2.0 * B * H * D * (2 * N + 2 * M) + 4.0 * B * H * N
         t_ops, t_bytes = flops / _BF16_FLOPS * 1e3, nbytes / _HBM_BYTES * 1e3
         per_shape.append(dict(
-            shape=label, dims=[B, H, N, M, D], max_abs_err=err_o, lse_max_abs_err=err_l,
+            shape=label, dims=[B, H, N, M, D], max_abs_err=err_o, rel_err=rel,
+            rel_err_one_tile_missing=fault, lse_max_abs_err=err_l,
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             tflops=flops / ms / 1e9))
-        say(f"kernel flash_attention_fwd {label} {[B, H, N, M, D]}: err_O {err_o:.3e} "
-            f"err_lse {err_l:.3e} kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+        say(f"kernel flash_attention_fwd {label} {[B, H, N, M, D]}: err_O {err_o:.3e} relative "
+            f"{rel:.2e} (limit {_FWD_REL_LIMIT:.2e}; one kv tile missing {fault:.2e}) err_lse "
+            f"{err_l:.3e}; same bits in two calls; kernel {ms:.3f} ms "
+            f"({flops / ms / 1e9:.0f} TFLOP/s, {ms / lib_ms:.2f}x sdpa) plain {plain_ms:.3f} ms "
             f"sdpa {lib_ms:.3f} ms bound {max(t_ops, t_bytes):.3f} ms")
-        del q, k, v, out, lse, ref, ref_lse
+        del q, k, v, out, lse
         torch.cuda.empty_cache()
-    head = per_shape[0]  # the DiT's joint attention: most launches on the main path
+    head = per_shape[0]
     return dict(name="flash_attention_fwd", route="cuda",
                 source="followmyhold_tpu_torch/csrc/flash_attention_fwd.cu",
                 replaces="followmyhold_tpu/ops/attention.py:108",
@@ -170,10 +217,6 @@ def _plain_backward_by_slice(A, q, k, v, do, lse, dsum, scale):
 # step of the whole tensor), and the rows of the tile whose omission it must catch
 _BWD_REL_LIMIT = 2.0 ** -8
 _BWD_FAULT_ROWS = 32
-
-
-def _rel_err(got, want) -> float:
-    return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
 
 def _one_tile_fault(A, q, k, v, do, lse, dsum, scale, ref) -> dict:
@@ -600,8 +643,13 @@ def main() -> None:
     from followmyhold_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
-    _kernels.load_library(verbose=True)
+    _, reports = _kernels.build_library(verbose=True)
+    _kernels.load_library()
     say(f"build: kernels compiled and loaded in {time.perf_counter() - t0:.1f} s")
+    # a spill or a serialised wgmma costs the kernels their design's speed
+    for src, report in reports.items():
+        if "serialized" in report or re.search(r"[1-9]\d* bytes spill", report):
+            fail(f"ptxas reports spills or serialised wgmma instructions in {src}")
 
     kernels = [check_flash_attention(dev), check_flash_attention_backward(dev),
                *check_rasterizer(dev)]

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict, Tuple
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,7 +34,7 @@ _SOURCES = {
     "raster_fwd.cu": ["-fmad=false"],
     "raster_bwd.cu": ["-fmad=false"],
 }
-_HEADERS = ["raster_common.cuh"]
+_HEADERS = ["hopper_common.cuh", "raster_common.cuh"]
 
 LAUNCH_COUNTS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "raster_fwd": 0,
                  "raster_bwd": 0}
@@ -88,12 +89,15 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build_library(verbose: bool = False) -> Path:
-    """Compile every source (in parallel) and link; returns the library path."""
+def build_library(verbose: bool = False) -> Tuple[Path, Dict[str, str]]:
+    """Compile every source (in parallel) and link. Returns the library path
+    and, for a verbose build, each source's compiler report (ptxas -v); none
+    when the library was already built."""
     out_dir = build_dir()
     lib_path = out_dir / f"libfmh_kernels_{_digest()}.so"
+    reports: Dict[str, str] = {}
     if lib_path.exists():
-        return lib_path
+        return lib_path, reports
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     extra = ["-Xptxas", "-v"] if verbose else []
@@ -109,6 +113,7 @@ def build_library(verbose: bool = False) -> Path:
         if proc.returncode != 0:
             failed.append(f"{src}:\n{log}")
         elif verbose and log.strip():
+            reports[src] = log
             print(f"[nvcc {src}]\n{log.strip()}")
         objs.append(obj)
     try:
@@ -123,15 +128,15 @@ def build_library(verbose: bool = False) -> Path:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
-    return lib_path
+    return lib_path, reports
 
 
-def load_library(verbose: bool = False):
+def load_library():
     """The kernels' library, built at first use; argtypes set for every entry."""
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(str(build_library(verbose=verbose)))
+    lib = ctypes.CDLL(str(build_library()[0]))
     for name, signature in ENTRY_POINTS.items():
         fn = getattr(lib, name)
         fn.argtypes = [_CTYPES[c] for c in signature]

@@ -1,9 +1,10 @@
 """Attention of the PyTorch port against the JAX package.
 
 The plain version that stands beside the CUDA kernel is held against the
-Pallas flash kernel run in interpret mode (output and logsumexp; exact-block
-and ragged-kv cases) and against ``attention_xla``. Float32 inputs, tolerance
-1e-5: the same sums in another order. The dispatch gate is the reference's.
+Pallas flash kernel run in interpret mode (output and logsumexp; exact-block,
+ragged-kv and ragged-query cases at head size 64, and head size 128) and
+against ``attention_xla``. Float32 inputs, tolerance 1e-5: the same sums in
+another order. The dispatch gate is the reference's.
 """
 
 import functools
@@ -37,17 +38,25 @@ def _qkv(seed, n, m, d=64, b=1, h=2):
             rng.normal(size=(b, h, m, d)).astype(np.float32))
 
 
-@pytest.mark.parametrize("m, m_pad", [(512, 512), (300, 512)], ids=["exact", "ragged"])
-def test_plain_version_matches_pallas_kernel(m, m_pad):
-    q, k, v = _qkv(m, 256, m)
-    pad = ((0, 0), (0, 0), (0, m_pad - m), (0, 0))
-    out, lse = _run_interpreted(JA._flash_attention_pallas, jnp.asarray(q),
-                                jnp.pad(jnp.asarray(k), pad), jnp.pad(jnp.asarray(v), pad),
-                                m, 0.125, 256, 256)
+@pytest.mark.parametrize("n, m, m_pad, d", [(256, 512, 512, 64), (256, 300, 512, 64),
+                                           (200, 300, 512, 64), (256, 300, 512, 128)],
+                         ids=["exact", "ragged", "ragged_queries", "d128"])
+def test_plain_version_matches_pallas_kernel(n, m, m_pad, d):
+    """The Pallas call takes a multiple of its 256-row blocks: kv rows past m
+    are padded and masked in the kernel, query rows past n padded and sliced
+    off after; the plain version takes the ragged lengths as they are."""
+    q, k, v = _qkv(m, n, m, d=d)
+    scale = 1.0 / np.sqrt(d)
+    n_pad = -(-n // 256) * 256
+    pad_q = ((0, 0), (0, 0), (0, n_pad - n), (0, 0))
+    pad_kv = ((0, 0), (0, 0), (0, m_pad - m), (0, 0))
+    out, lse = _run_interpreted(JA._flash_attention_pallas, jnp.pad(jnp.asarray(q), pad_q),
+                                jnp.pad(jnp.asarray(k), pad_kv), jnp.pad(jnp.asarray(v), pad_kv),
+                                m, scale, 256, 256)
     got, got_lse = TA.flash_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
-                                            torch.from_numpy(v), 0.125)
-    np.testing.assert_allclose(got.numpy(), np.asarray(out), atol=1e-5)
-    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse), atol=1e-5)
+                                            torch.from_numpy(v), scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(out)[:, :, :n], atol=1e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse)[:, :, :n], atol=1e-5)
 
 
 def test_forward_wrapper_on_cpu_is_the_plain_version():

@@ -5,8 +5,9 @@
 points as ``extern "C"`` functions. ctypes cannot check one against the other,
 so a parameter added on one side only (a scratch pointer, say) would shift every
 argument after it without an error. This reads the declarations from the
-sources and holds the table against them, parameter by parameter. No nvcc,
-library or GPU is needed.
+sources and holds the table against them, parameter by parameter, and checks
+that every file under ``csrc/`` is an input of the build. No nvcc, library or
+GPU is needed.
 """
 
 import pathlib
@@ -49,6 +50,22 @@ def test_argtypes_match_the_declaration(name):
     assert bound == declared, (f"{name}: csrc declares {len(declared)} parameters "
                                f"{declared!r}, ENTRY_POINTS binds {len(bound)} {bound!r}")
     assert set(bound) <= set(_kernels._CTYPES)
+
+
+@pytest.mark.parametrize("pattern, listed", [("*.cu", _kernels._SOURCES),
+                                             ("*.cuh", _kernels._HEADERS)],
+                         ids=["sources", "headers"])
+def test_every_kernel_file_is_a_build_input(pattern, listed):
+    """Every source is compiled, and every header is hashed into the library's
+    name: a file left out of either would let an edited kernel run from a
+    stale library."""
+    assert sorted(p.name for p in CSRC.glob(pattern)) == sorted(listed)
+
+
+def test_every_included_header_is_a_build_input():
+    included = {name for src in CSRC.iterdir()
+                for name in re.findall(r'#include\s+"([^"]+)"', src.read_text())}
+    assert included and included <= set(_kernels._HEADERS)
 
 
 def test_parameter_kinds_are_read_from_the_declaration():
