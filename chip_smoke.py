@@ -13,7 +13,12 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             and hold the result against its plain PyTorch version on the same
             inputs; time kernel, plain version and, for attention, PyTorch's
             scaled_dot_product_attention as a yardstick (the port never calls it).
+            Also the deterministic scatter-add behind every gather's gradient
+            (ops/indexing.scatter_rows_add): no host sync, same bits in two
+            calls, timed beside the atomic index_add_ it replaced.
 4. main     full-width Hunyuan3D-2 DiT + ShapeVAE with seeded random weights:
+            first two calls of GuidedSampler.run with a reduced config (every
+            phase, a few steps each) that must give the same bits; then
             GuidedSampler.run with the default OptimizationConfig (20 CFG
             steps; 200 hand-pose Adam steps, 100 object-phase and 9 x 50
             joint-phase AdamW steps, each through the ShapeVAE decode and its
@@ -33,7 +38,7 @@ Tolerances, and why:
   calls must give the same bits (no atomics), and the checked call follows a
   call on other inputs, whose freed outputs the allocator hands to it: a row
   the kernel fails to write then holds a wrong O and lse. A ragged D=64
-  shape runs the masks.
+  shape runs the masks; D=80 and D=72 run the wrapper's zero padding to 128.
 - flash attention logsumexp (f32): 2e-3 absolute: exp2/log in another order
   and f32 sums over up to 4442 columns.
 - flash attention backward (dq f32, dk and dv bf16): 2e-2 * max|ref| + 1e-3
@@ -53,7 +58,10 @@ Tolerances, and why:
 - rasterizer forward: winner slots must agree on all but 0.1 % of the pixels
   (the arithmetic is bit-identical by construction; the margin is for depth
   ties). Where they agree, w1, w2 to 1e-5 and vis to 1e-4 (the visibility
-  product is taken in another order).
+  product is taken in another order). Checked at the hand and the object
+  shape, forward and backward: two calls give the same bits, and the checked
+  call follows a call on other inputs of the same shapes, so a pixel or a
+  dgeom column the kernels leave unwritten holds another value.
 - rasterizer backward: 2e-2 * max|ref| against autograd of the plain version
   (the tolerance of the reference's own kernel test), and all but 1 % of the
   entries within 1e-4 * max|ref|. Nearly every entry agrees to summation order.
@@ -82,7 +90,8 @@ import torch
 _BF16_FLOPS = 989e12
 _F32_FLOPS = 67e12
 _HBM_BYTES = 3.35e12
-# f32 operations per (pixel, face) pair, counted from the kernels' arithmetic
+# f32 operations per (pixel, face) pair, counted from the first kernels' arithmetic
+# and kept, so that bounds compare across versions
 _RASTER_FWD_OPS = 90
 _RASTER_BWD_OPS = 170
 
@@ -132,6 +141,8 @@ def check_flash_attention(dev) -> dict:
         ("geo_cross", 4, 16, 8192, 3072, 64),
         ("dit_joint", 2, 16, 4442, 4442, 128),
         ("ragged", 1, 16, 3000, 2900, 64),   # the kv mask, zero-filled rows, rows past N
+        ("d80", 1, 16, 1024, 1024, 80),      # head sizes padded to 128 by the wrapper
+        ("d72", 1, 16, 1024, 1024, 72),
     ]
     per_shape = []
     for label, B, H, N, M, D in shapes:
@@ -241,6 +252,8 @@ def check_flash_attention_backward(dev) -> dict:
         ("geo_cross", 4, 16, 8192, 3072, 64),
         ("dit_joint", 2, 16, 4442, 4442, 128),
         ("ragged", 1, 16, 3000, 2900, 64),   # every mask of the D=64 design
+        ("d80", 1, 16, 1024, 1024, 80),      # head sizes padded to 128 by the wrapper
+        ("d72", 1, 16, 1024, 1024, 72),
     ]
     per_shape = []
     for label, B, H, N, M, D in shapes:
@@ -331,23 +344,139 @@ def check_flash_attention_backward(dev) -> dict:
 
 
 def _tile_inputs(camera, verts, faces, faces_per_tile):
-    """The (geom, tile_start, meta) that rasterize() hands to the kernels."""
+    """The packed tile inputs (TileInputs) that rasterize() hands to the kernels."""
     from followmyhold_tpu_torch.ops.rasterizer import bin_and_pack
 
-    packed = bin_and_pack(camera, verts, faces, torch.ones(faces.shape[0], device=verts.device),
-                          0.7, faces_per_tile)
-    return packed.geom, packed.tile_start, packed.meta
+    return bin_and_pack(camera, verts, faces, torch.ones(faces.shape[0], device=verts.device),
+                        0.7, faces_per_tile)
 
 
-def _raster_bound(tile_start, n_ops: int, n_column_bytes: int, n_pixel_bytes: int) -> tuple:
+def _raster_pairs(geom, tile_start, meta) -> tuple:
+    """(all pairs, pairs within reach): every binned (pixel, face) pair of the
+    lists, and those the kernels evaluate, inside the face's bounding box padded
+    by the reach (non-degenerate faces only)."""
+    counts = (tile_start[1:] - tile_start[:-1]).long()
+    T = counts.numel()
+    tile_of = torch.repeat_interleave(torch.arange(T, device=geom.device), counts)
+    x, y = geom[[0, 3, 6]], geom[[1, 4, 7]]
+    area = (x[1] - x[0]) * (y[2] - y[0]) - (y[1] - y[0]) * (x[2] - x[0])
+    x0 = ((tile_of % meta.tiles_x) * 16).float()
+    y0 = ((tile_of // meta.tiles_x) * 16).float()
+    r = meta.reach
+    w = ((torch.floor(x.amax(0) + r) - x0).clamp(max=15)
+         - (torch.ceil(x.amin(0) - r) - x0).clamp(min=0) + 1).clamp(min=0)
+    h = ((torch.floor(y.amax(0) + r) - y0).clamp(max=15)
+         - (torch.ceil(y.amin(0) - r) - y0).clamp(min=0) + 1).clamp(min=0)
+    near = (w * h * (area.abs() >= 1e-12).float()).double().sum().item()
+    return float(counts.sum().item()) * 256.0, near
+
+
+def _raster_bound(tile_start, pairs: float, n_ops: int, n_column_bytes: int,
+                  n_pixel_bytes: int) -> tuple:
     """Least time for this run's lists: every (tile, face) column of 9 floats and
-    every pixel's values move once; every (pixel, face) pair costs n_ops."""
+    every pixel's values move once; every evaluated (pixel, face) pair costs n_ops."""
     columns = float((tile_start[1:] - tile_start[:-1]).double().sum().item())
-    pairs = columns * 256.0
     T = tile_start.numel() - 1
     nbytes = columns * n_column_bytes + T * 256.0 * n_pixel_bytes
     t_ops, t_bytes = pairs * n_ops / _F32_FLOPS * 1e3, nbytes / _HBM_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), pairs
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _shifted(geom, px: float):
+    """Other inputs of the same shape: every face moved by px pixels in x and y."""
+    other = geom.clone()
+    other[[0, 1, 3, 4, 6, 7]] += px
+    return other
+
+
+def _check_raster_shape(R, tag, packed, gen) -> tuple:
+    """K3 and K4 at one shape: each held against the plain version (forward)
+    and autograd of it (backward), two calls giving the same bits, and the
+    checked call run right after a call on other inputs of the same shapes,
+    whose freed outputs the allocator hands to it, so that a pixel or a dgeom
+    column the kernels fail to write holds another value."""
+    from followmyhold_tpu_torch.tools.time_raster_kernels import time_call
+
+    geom, tile_start, meta = packed.geom, packed.tile_start, packed.meta
+    other = R.raster_tiles_forward(_shifted(geom, 3.5), tile_start, meta)
+    del other
+    got = R.raster_tiles_forward(geom, tile_start, meta)
+    again = R.raster_tiles_forward(geom, tile_start, meta)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"raster forward {tag}: two calls on the same inputs differ")
+    del again
+    geom_p = geom.clone().requires_grad_(True)
+    ref = R.raster_tiles_plain(geom_p, tile_start, meta)
+    err_f, mismatch = _compare_forward(tag, got, ref)
+
+    gw1, gw2, gvis = (torch.randn(got[0].shape, generator=gen, device=geom.device)
+                      for _ in range(3))
+    other = R.raster_tiles_backward(_shifted(geom, 3.5), tile_start, got[2], got[3], -gw2, gvis,
+                                    gw1, meta)
+    del other
+    dgeom = R.raster_tiles_backward(geom, tile_start, got[2], got[3], gw1, gw2, gvis, meta)
+    again = R.raster_tiles_backward(geom, tile_start, got[2], got[3], gw1, gw2, gvis, meta)
+    torch.cuda.synchronize()
+    if not torch.equal(dgeom, again):
+        fail(f"raster backward {tag}: two calls on the same inputs differ")
+    del again
+    (ref_dgeom,) = torch.autograd.grad(
+        (ref[0] * gw1).sum() + (ref[1] * gw2).sum() + (ref[3] * gvis).sum(), geom_p)
+    ref_max = ref_dgeom.abs().max().item()
+    diff_b = (dgeom - ref_dgeom).abs()
+    err_b = diff_b.max().item()
+    loose_b = (diff_b > 1e-4 * ref_max + 1e-6).float().mean().item()
+    if not (math.isfinite(err_b) and err_b <= 2e-2 * ref_max and loose_b <= 1e-2):
+        fail(f"raster backward {tag}: dgeom differs by {err_b} (max|ref| {ref_max}), "
+             f"{loose_b:.2%} of the entries beyond 1e-4 of the maximum")
+    del ref, ref_dgeom, geom_p
+
+    # device time per wrapper call (chunk plan and kernels) from the replay of a
+    # CUDA graph; the eager time also holds the host's share of a call
+    fwd_t = time_call(lambda: R.raster_tiles_forward(geom, tile_start, meta))
+    bwd_t = time_call(lambda: R.raster_tiles_backward(
+        geom, tile_start, got[2], got[3], gw1, gw2, gvis, meta))
+    fwd_ms, bwd_ms = fwd_t["graph_ms"], bwd_t["graph_ms"]
+    with torch.no_grad():
+        plain_fwd_ms = cuda_ms(lambda: R.raster_tiles_plain(geom, tile_start, meta), 1, 2)
+
+    def plain_fwd_bwd():
+        g = geom.clone().requires_grad_(True)
+        o = R.raster_tiles_plain(g, tile_start, meta)
+        torch.autograd.grad((o[0] * gw1).sum() + (o[1] * gw2).sum() + (o[3] * gvis).sum(), g)
+
+    # the plain backward alone: forward + backward, less the forward timed above
+    plain_bwd_ms = cuda_ms(plain_fwd_bwd, 1, 2) - plain_fwd_ms
+    pairs, near = _raster_pairs(geom, tile_start, meta)
+    fwd_bound, fwd_by = _raster_bound(tile_start, near, _RASTER_FWD_OPS, 36, 16)
+    bwd_bound, bwd_by = _raster_bound(tile_start, near, _RASTER_BWD_OPS, 72, 20)
+    fwd_all, _ = _raster_bound(tile_start, pairs, _RASTER_FWD_OPS, 36, 16)
+    bwd_all, _ = _raster_bound(tile_start, pairs, _RASTER_BWD_OPS, 72, 20)
+    counts = (tile_start[1:] - tile_start[:-1]).long()
+    plan_chunks = int(R.raster_chunk_plan(tile_start, geom.shape[1])[0][-1].item())
+    common = dict(faces=int(packed.tri.shape[0]), columns=int(geom.shape[1]),
+                  longest_list=int(counts.max().item()), chunks=plan_chunks,
+                  pixel_face_pairs=pairs, pairs_after_cull=near)
+    fwd = dict(common, ms=fwd_ms, eager_ms=fwd_t["eager_ms"], plain_ms=plain_fwd_ms,
+               bound_ms=fwd_bound, bound_by=fwd_by,
+               bound_ms_all_pairs=fwd_all, max_abs_err=err_f, slot_mismatch=mismatch)
+    bwd = dict(common, ms=bwd_ms, eager_ms=bwd_t["eager_ms"], plain_ms=plain_bwd_ms,
+               bound_ms=bwd_bound, bound_by=bwd_by,
+               bound_ms_all_pairs=bwd_all, max_abs_err=err_b, max_abs_ref=ref_max,
+               loose_share=loose_b)
+    say(f"kernel raster_fwd {tag} 512^2 F={common['faces']} P={geom.shape[1]} (longest list "
+        f"{common['longest_list']}, {plan_chunks} chunks of {R.RASTER_CHUNK}): err {err_f:.3e} "
+        f"slot mismatch {mismatch:.2e}; same bits in two calls; kernel {fwd_ms:.4f} ms (eager "
+        f"{fwd_t['eager_ms']:.4f}) plain "
+        f"{plain_fwd_ms:.3f} ms; bound {fwd_bound:.4f} ms for {near:.0f} pairs within reach "
+        f"({fwd_all:.4f} ms for all {pairs:.0f} pairs)")
+    say(f"kernel raster_bwd {tag} 512^2: err {err_b:.3e} (max|ref| {ref_max:.3e}, {loose_b:.2e} "
+        f"of the entries beyond 1e-4 of it); same bits in two calls; kernel {bwd_ms:.4f} ms (eager "
+        f"{bwd_t['eager_ms']:.4f}) "
+        f"plain {plain_bwd_ms:.3f} ms; bound {bwd_bound:.4f} ms within reach ({bwd_all:.4f} ms "
+        f"all pairs)")
+    return fwd, bwd, got
 
 
 def _compare_forward(tag, got, ref):
@@ -364,57 +493,90 @@ def _compare_forward(tag, got, ref):
     return max(err_w, err_v), mismatch
 
 
+def check_scatter(dev, R, packed, slot, sphere) -> dict:
+    """The deterministic row scatter-add (csrc/scatter_rows.cu behind
+    ops/indexing.scatter_rows_add), the backward of every take_rows, held
+    against a float64 index_add_ on the same inputs at two shapes: the
+    render's per-pixel gather (the face rows of 262,144 pixels, 9 floats each,
+    rasterize's pixel_face_rows), the most launched, and the corner gather of
+    the marching-tets sphere padded to the path's 65,536-face capacity (3 floats
+    a corner into 32,768 vertex rows; every padded face is (0, 0, 0), so vertex
+    0 holds a run of some 10^4).
+    Tolerance: 1e-5 of each output row's sum of magnitudes (the kernel's
+    64-bit fixed-point sum, rounded once to f32, against f64; float atomics
+    meet it too). It must give the same
+    bits in two calls, write every row (the checked call follows a call on
+    other inputs whose freed output the allocator hands to it) and not sync the
+    host (sync debug mode, and a CUDA graph captures it). The plain version,
+    index_add_ with float atomics, is also the library call timed beside it."""
+    from followmyhold_tpu_torch.ops import indexing as I
+    from followmyhold_tpu_torch.tools.time_raster_kernels import time_call
+
+    n_faces = packed.tri.shape[0]
+    fid = R.pixel_face_rows(packed.face_list, packed.tile_start, slot, n_faces).reshape(-1)
+    shapes = [("render_gather", n_faces, fid, 9),
+              ("padded_mesh_corners", sphere.verts.shape[0], sphere.faces.reshape(-1), 3)]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    per_shape = []
+    for label, n_rows, index, cols in shapes:
+        src = torch.randn((index.numel(), cols), generator=gen, device=dev)
+        other = I.scatter_rows_add_forward(n_rows, index.flip(0), -src)
+        del other
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = I.scatter_rows_add_forward(n_rows, index, src)
+            again = I.scatter_rows_add_forward(n_rows, index, src)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"scatter_rows_add {label}: two calls on the same inputs differ")
+        want = I.scatter_rows_add_plain(n_rows, index, src.double())
+        scale = I.scatter_rows_add_plain(n_rows, index, src.double().abs())
+        excess = ((got.double() - want).abs() - 1e-5 * scale).max().item()
+        err = (got.double() - want).abs().max().item()
+        if not excess <= 0.0:
+            fail(f"scatter_rows_add {label}: differs from the float64 sum beyond 1e-5 of the "
+                 f"row sums (max |diff| {err})")
+        t = time_call(lambda: I.scatter_rows_add_forward(n_rows, index, src))
+        lib = time_call(lambda: I.scatter_rows_add_plain(n_rows, index, src))
+        longest = int(torch.bincount(index, minlength=n_rows).max().item())
+        nbytes = index.numel() * (8.0 + 4.0 * cols) + n_rows * 4.0 * cols
+        t_bytes, t_ops = nbytes / _HBM_BYTES * 1e3, index.numel() * cols / _F32_FLOPS * 1e3
+        per_shape.append(dict(shape=label, rows=index.numel(), n_rows=n_rows, cols=cols,
+                              longest_run=longest, max_abs_err=err, ms=t["graph_ms"],
+                              eager_ms=t["eager_ms"], plain_ms=lib["graph_ms"],
+                              library_ms=lib["graph_ms"], bound_ms=max(t_bytes, t_ops),
+                              bound_by="bytes" if t_bytes >= t_ops else "operations"))
+        say(f"kernel scatter_rows_add {label} {index.numel()} rows -> {n_rows} x {cols} (longest "
+            f"run {longest}): max |diff| to float64 {err:.3e}; same bits in two calls, no host "
+            f"sync; kernel {t['graph_ms']:.4f} ms (eager {t['eager_ms']:.4f}), atomic "
+            f"index_add_ {lib['graph_ms']:.4f} ms (eager {lib['eager_ms']:.4f}); bound "
+            f"{max(t_bytes, t_ops):.4f} ms")
+    head = per_shape[0]
+    return dict(name="scatter_rows_add", route="cuda",
+                source="followmyhold_tpu_torch/csrc/scatter_rows.cu",
+                replaces="followmyhold_tpu/ops/rasterizer.py:601",
+                replaces_note="no Pallas kernel: the gradient of the reference's gathers "
+                              "(here the per-pixel face rows) is XLA's scatter-add",
+                max_abs_err=max(x["max_abs_err"] for x in per_shape), ms=head["ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=head["library_ms"], shapes=per_shape)
+
+
 def check_rasterizer(dev) -> list:
     from followmyhold_tpu_torch.ops import rasterizer as R
     from followmyhold_tpu_torch.ops.surface import PaddedMesh, marching_tets, vertex_normals
     from followmyhold_tpu_torch.ops.grid import generate_dense_grid_points
     from followmyhold_tpu_torch.tools._scene import hand_scene
 
+    gen = torch.Generator(device=dev).manual_seed(7)
     # --- the hand mesh at 512^2: forward and backward, tile level ---------- #
     mano, verts, camera, _ = hand_scene(dev, 512)
     faces = mano.faces
-    geom, tile_start, meta = _tile_inputs(camera, verts, faces, 2048)
-    got = R.raster_tiles_forward(geom, tile_start, meta)
-    torch.cuda.synchronize()
-    geom_p = geom.clone().requires_grad_(True)
-    ref = R.raster_tiles_plain(geom_p, tile_start, meta)
-    err_f, mismatch = _compare_forward("hand", got, ref)
-
-    gen = torch.Generator(device=dev).manual_seed(7)
-    gw1, gw2, gvis = (torch.randn(got[0].shape, generator=gen, device=dev) for _ in range(3))
-    dgeom = R.raster_tiles_backward(geom, tile_start, got[2], got[3], gw1, gw2, gvis, meta)
-    torch.cuda.synchronize()
-    (ref_dgeom,) = torch.autograd.grad(
-        (ref[0] * gw1).sum() + (ref[1] * gw2).sum() + (ref[3] * gvis).sum(), geom_p)
-    ref_max = ref_dgeom.abs().max().item()
-    diff_b = (dgeom - ref_dgeom).abs()
-    err_b = diff_b.max().item()
-    loose_b = (diff_b > 1e-4 * ref_max + 1e-6).float().mean().item()
-    if not (math.isfinite(err_b) and err_b <= 2e-2 * ref_max and loose_b <= 1e-2):
-        fail(f"raster backward hand: dgeom differs by {err_b} (max|ref| {ref_max}), "
-             f"{loose_b:.2%} of the entries beyond 1e-4 of the maximum")
-
-    fwd_ms = cuda_ms(lambda: R.raster_tiles_forward(geom, tile_start, meta), 2, 20)
-    bwd_ms = cuda_ms(lambda: R.raster_tiles_backward(
-        geom, tile_start, got[2], got[3], gw1, gw2, gvis, meta), 2, 20)
-    with torch.no_grad():
-        plain_fwd_ms = cuda_ms(lambda: R.raster_tiles_plain(geom, tile_start, meta), 1, 2)
-
-    def plain_fwd_bwd():
-        g = geom.clone().requires_grad_(True)
-        o = R.raster_tiles_plain(g, tile_start, meta)
-        torch.autograd.grad((o[0] * gw1).sum() + (o[1] * gw2).sum() + (o[3] * gvis).sum(), g)
-
-    # the plain backward alone: forward + backward, less the forward timed above
-    plain_bwd_ms = cuda_ms(plain_fwd_bwd, 1, 2) - plain_fwd_ms
-    fwd_bound, fwd_by, pairs = _raster_bound(tile_start, _RASTER_FWD_OPS, 36, 16)
-    bwd_bound, bwd_by, _ = _raster_bound(tile_start, _RASTER_BWD_OPS, 72, 20)
-    say(f"kernel raster_fwd hand 512^2 F={faces.shape[0]} P={geom.shape[1]}: err {err_f:.3e} "
-        f"slot mismatch {mismatch:.2e} kernel {fwd_ms:.3f} ms plain {plain_fwd_ms:.3f} ms "
-        f"bound {fwd_bound:.4f} ms")
-    say(f"kernel raster_bwd hand 512^2: err {err_b:.3e} (max|ref| {ref_max:.3e}, "
-        f"{loose_b:.2e} of the entries beyond 1e-4 of it) kernel {bwd_ms:.3f} ms plain "
-        f"{plain_bwd_ms:.3f} ms bound {bwd_bound:.4f} ms")
+    packed = _tile_inputs(camera, verts, faces, 2048)
+    fwd_h, bwd_h, got_h = _check_raster_shape(R, "hand", packed, gen)
 
     # --- the hand mesh through rasterize(): gradients to the vertices ------ #
     normals = vertex_normals(PaddedMesh(verts, faces, torch.ones(verts.shape[0], device=dev),
@@ -434,6 +596,9 @@ def check_rasterizer(dev) -> list:
         return out, gv, gn
 
     out_k, gv_k, gn_k = render_grads(False)
+    out_k2, gv_k2, gn_k2 = render_grads(False)
+    if not (torch.equal(gv_k, gv_k2) and torch.equal(gn_k, gn_k2)):
+        fail("rasterize(): two calls give different vertex or normal gradients")
     out_p, gv_p, gn_p = render_grads(True)
     id_mismatch = (out_k.face_id != out_p.face_id).float().mean().item()
     err_gv = (gv_k - gv_p).abs().max().item()
@@ -446,44 +611,35 @@ def check_rasterizer(dev) -> list:
     covered = (out_k.face_id >= 0).float().mean().item()
     say(f"kernel raster fwd+bwd through rasterize(): ids differ on {id_mismatch:.2e}, "
         f"d/dverts err {err_gv:.3e} (max {gv_p.abs().max().item():.3e}), d/dnormals err "
-        f"{err_gn:.3e}, coverage {covered:.3f}")
+        f"{err_gn:.3e}, same bits in two calls, coverage {covered:.3f}")
 
-    # --- a ~60k-face object mesh at 512^2: forward only -------------------- #
+    # --- a ~60k-face object mesh at 512^2: forward and backward ------------ #
     xyz, _, _ = generate_dense_grid_points([-1.1] * 3, [1.1] * 3, 64, device=dev)
     sphere = marching_tets(xyz.norm(dim=-1) - 0.8, [-1.1] * 3, [1.1] * 3, 64)
     nf = sphere.num_faces
     obj_verts = sphere.verts * 0.25 + torch.tensor([0.0, 0.0, -0.8], device=dev)
-    geom_o, tile_start_o, meta_o = _tile_inputs(camera, obj_verts, sphere.faces[:nf], 24576)
-    got_o = R.raster_tiles_forward(geom_o, tile_start_o, meta_o)
-    torch.cuda.synchronize()
-    with torch.no_grad():
-        ref_o = R.raster_tiles_plain(geom_o, tile_start_o, meta_o)
-    err_o, mismatch_o = _compare_forward("object", got_o, ref_o)
-    obj_ms = cuda_ms(lambda: R.raster_tiles_forward(geom_o, tile_start_o, meta_o), 2, 20)
-    with torch.no_grad():
-        obj_plain_ms = cuda_ms(lambda: R.raster_tiles_plain(geom_o, tile_start_o, meta_o), 0, 1)
+    packed_o = _tile_inputs(camera, obj_verts, sphere.faces[:nf], 24576)
+    fwd_o, bwd_o, _ = _check_raster_shape(R, "object", packed_o, gen)
     bin_ms = cuda_ms(lambda: _tile_inputs(camera, obj_verts, sphere.faces[:nf], 24576), 1, 5)
-    obj_bound, _, _ = _raster_bound(tile_start_o, _RASTER_FWD_OPS, 36, 16)
-    say(f"kernel raster_fwd object 512^2 F={nf} P={geom_o.shape[1]}: err {err_o:.3e} slot "
-        f"mismatch {mismatch_o:.2e} kernel {obj_ms:.3f} ms plain {obj_plain_ms:.3f} ms bound "
-        f"{obj_bound:.4f} ms; "
-        f"projecting, binning and packing it (torch ops) {bin_ms:.3f} ms")
+    fwd_o["bin_and_pack_ms"] = bin_ms
+    say(f"raster object 512^2: projecting, binning and packing it (torch ops) {bin_ms:.3f} ms")
+    scatter = check_scatter(dev, R, packed, got_h[2], sphere)
 
-    fwd = dict(name="raster_fwd", route="cuda",
-               source="followmyhold_tpu_torch/csrc/raster_fwd.cu",
-               replaces="followmyhold_tpu/ops/rasterizer.py:506",
-               max_abs_err=max(err_f, err_o), ms=fwd_ms, plain_ms=plain_fwd_ms,
-               bound_ms=fwd_bound, bound_by=fwd_by, library_ms=None,
-               pixel_face_pairs=pairs, slot_mismatch=max(mismatch, mismatch_o),
-               object_mesh=dict(faces=nf, ms=obj_ms, plain_ms=obj_plain_ms, bound_ms=obj_bound,
-                                bin_and_pack_ms=bin_ms))
-    bwd = dict(name="raster_bwd", route="cuda",
-               source="followmyhold_tpu_torch/csrc/raster_bwd.cu",
-               replaces="followmyhold_tpu/ops/rasterizer.py:530",
-               max_abs_err=err_b, ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bwd_bound,
-               bound_by=bwd_by, library_ms=None, pixel_face_pairs=pairs,
-               vertex_grad_err=err_gv)
-    return [fwd, bwd]
+    def entry(name, src, line, hand, obj, **extra):
+        return dict(name=name, route="cuda", source=f"followmyhold_tpu_torch/csrc/{src}",
+                    replaces=f"followmyhold_tpu/ops/rasterizer.py:{line}",
+                    max_abs_err=max(hand["max_abs_err"], obj["max_abs_err"]), ms=hand["ms"],
+                    plain_ms=hand["plain_ms"], bound_ms=hand["bound_ms"],
+                    bound_by=hand["bound_by"], library_ms=None, chunk=R.RASTER_CHUNK,
+                    pixel_face_pairs=hand["pixel_face_pairs"],
+                    pairs_after_cull=hand["pairs_after_cull"],
+                    bound_ms_all_pairs=hand["bound_ms_all_pairs"], hand_mesh=hand,
+                    object_mesh=obj, **extra)
+
+    fwd = entry("raster_fwd", "raster_fwd.cu", 506, fwd_h, fwd_o,
+                slot_mismatch=max(fwd_h["slot_mismatch"], fwd_o["slot_mismatch"]))
+    bwd = entry("raster_bwd", "raster_bwd.cu", 530, bwd_h, bwd_o, vertex_grad_err=err_gv)
+    return [fwd, bwd, scatter]
 
 
 # --------------------------------------------------------------------------- #
@@ -506,6 +662,49 @@ def _noise_moved(sampler, result, cond_cat, n_steps) -> float:
         plain = cfg_noise_pred(sampler.dit, cond_cat, before,
                                sched.timesteps[i] / sched.num_train_timesteps, g)
     return (result.noise_pred - plain).abs().max().item()
+
+
+# a reduced OptimizationConfig with every phase: 8 steps, the hand phase at step 3,
+# the object phase at step 4 and joint phases at steps 5-7 (all near the end, so
+# the intersection count runs too)
+_TWO_RUN_CONFIG = dict(num_inference_steps=8, optimization_steps_hand=10,
+                       optimization_steps_scale=5, optimization_steps_joint=5)
+
+
+def check_two_runs(dev, dit, vae, camera, targets, cond, uncond) -> None:
+    """Two calls of GuidedSampler.run on the same inputs must give the same
+    bits: loss curves, latents, noise prediction and both poses. Every scatter
+    of the path sums in a fixed order, so nothing may differ."""
+    from followmyhold_tpu_torch.configs.guidance import OptimizationConfig, guidance_mesh_caps
+    from followmyhold_tpu_torch.diffusion.guidance import GuidedSampler
+    from followmyhold_tpu_torch.models.hunyuan import VAE_FULL
+
+    config = OptimizationConfig(**_TWO_RUN_CONFIG)
+    runs, secs = [], []
+    for _ in range(2):
+        sampler = GuidedSampler(dit=dit, vae=vae, camera=camera, config=config,
+                                **guidance_mesh_caps())
+        t0 = time.perf_counter()
+        runs.append(sampler.run(cond, uncond, targets, (VAE_FULL.num_latents, VAE_FULL.embed_dim),
+                                generator=torch.Generator(device=dev).manual_seed(2), device=dev))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    a, b = runs
+    wrong = [tag for tag in a.losses if not torch.equal(a.losses[tag], b.losses[tag])]
+    if sorted(a.losses) != sorted(b.losses):
+        wrong.append("phases")
+    for name, x, y in (("latents", a.latents, b.latents), ("noise_pred", a.noise_pred,
+                                                           b.noise_pred)):
+        if not torch.equal(x, y):
+            wrong.append(name)
+    for name, x, y in (("hand", a.hand, b.hand), ("obj", a.obj, b.obj)):
+        if not all(torch.equal(p, q) for p, q in zip(x, y)):
+            wrong.append(f"{name} pose")
+    if wrong:
+        fail(f"two guided runs on the same inputs differ in: {', '.join(wrong)}")
+    say(f"main: two reduced guided runs ({_TWO_RUN_CONFIG}) give the same bits: "
+        f"{len(a.losses)} loss curves, latents, noise prediction, poses; "
+        f"{secs[0]:.2f} s and {secs[1]:.2f} s")
 
 
 def run_main_path(dev) -> dict:
@@ -541,6 +740,8 @@ def run_main_path(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     cond = torch.randn((1, 1370, DIT_FULL.context_dim), generator=gen, device=dev)
     uncond = torch.zeros_like(cond)
+
+    check_two_runs(dev, dit, vae, camera, targets, cond, uncond)
 
     config = OptimizationConfig()
     sampler = GuidedSampler(dit=dit, vae=vae, camera=camera, config=config,
@@ -622,6 +823,10 @@ def run_main_path(dev) -> dict:
     if launches["raster_fwd"] < want_raster or launches["raster_bwd"] < want_raster:
         fail(f"rasterizer launched {launches['raster_fwd']} / {launches['raster_bwd']} times, "
              f"expected at least {want_raster} each")
+    # the backward of every render scatters the two per-pixel gathers (corners, normals)
+    if launches["scatter_rows_add"] < 2 * want_raster:
+        fail(f"scatter_rows_add launched {launches['scatter_rows_add']} times, expected at "
+             f"least {2 * want_raster}")
     return launches
 
 

@@ -636,7 +636,9 @@ def vae_query_logits_hier_grid(
     pts_f = lo + fijk.float() * step_f
     g_f = _geo_query_grouped(vae, kv, pts_f.reshape(1, -1, 3), chunk, group, remat)[0]
 
-    # compose: trilinear background + delta/multiplicity scatter-add
+    # compose: trilinear background + delta/multiplicity scatter-add. pt_ids
+    # comes from nonzero(), so no index repeats: each float index_add below
+    # adds once to its row, and the sum does not depend on the run.
     dense_bg = _upsample_corner_aligned(g_c3, cf).reshape(-1)            # [n_f^3]
     up_at = take_rows(dense_bg, pt_ids)
     mult = torch.zeros(n_f ** 3, dtype=torch.float32, device=dev).index_add_(

@@ -33,11 +33,12 @@ _SOURCES = {
     "flash_attention_bwd.cu": [],
     "raster_fwd.cu": ["-fmad=false"],
     "raster_bwd.cu": ["-fmad=false"],
+    "scatter_rows.cu": [],
 }
 _HEADERS = ["hopper_common.cuh", "raster_common.cuh"]
 
 LAUNCH_COUNTS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "raster_fwd": 0,
-                 "raster_bwd": 0}
+                 "raster_bwd": 0, "scatter_rows_add": 0}
 
 # The C signature of every entry point, parameter by parameter: "p" a pointer
 # (or the stream), "i" an int, "f" a float; each returns an int error code.
@@ -46,8 +47,9 @@ LAUNCH_COUNTS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "raster_fwd
 ENTRY_POINTS = {
     "fmh_flash_attention_fwd": "pppppiiiifp",
     "fmh_flash_attention_bwd": "pppppppppiiiifp",
-    "fmh_raster_fwd": "ppppppiiifffp",
-    "fmh_raster_bwd": "ppppppppiiifp",
+    "fmh_raster_fwd": "ppppppppiiiiiffffp",
+    "fmh_raster_bwd": "pppppppppiiiiiffp",
+    "fmh_scatter_rows_add": "ppppiiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

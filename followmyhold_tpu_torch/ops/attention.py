@@ -61,9 +61,34 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(weights.to(v.dtype), v).to(q.dtype), lse
 
 
+def kernel_head_size(d: int) -> int:
+    """The head size of the kernel build that serves head size ``d``: the
+    smallest of ``_KERNEL_HEAD_SIZES`` that holds it."""
+    for size in _KERNEL_HEAD_SIZES:
+        if d <= size:
+            return size
+    raise NotImplementedError(
+        f"flash-attention kernels take head sizes up to {_KERNEL_HEAD_SIZES[-1]}, got {d}")
+
+
+def pad_head(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Zero-pad the last dimension to ``size``. Zero columns of q and k add
+    nothing to QK^T, zero columns of v and dO nothing to O's rows, to the
+    logsumexp or to rowsum(dO * O), so the padded problem is the true one with
+    extra zero columns in O, dq, dk and dv."""
+    d = x.shape[-1]
+    return x if d == size else torch.nn.functional.pad(x, (0, size - d))
+
+
+def unpad_head(x: torch.Tensor, d: int) -> torch.Tensor:
+    """The first ``d`` columns of the last dimension, contiguous."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
+
+
 def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise on what the kernels do not take: they take bf16 [B,H,N,D] /
-    [B,H,M,D] on one device with D in {64, 128}; N and M may be ragged."""
+    [B,H,M,D] on one device with D in {64, 128}; N and M may be ragged. The
+    wrappers pad other head sizes up to 128 first."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"expected [B,H,N,D] and [B,H,M,D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -87,10 +112,14 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     by autograd (``multi_head_attention`` is the differentiable entry).
 
     CUDA tensors launch the kernel or raise; CPU tensors take the plain
-    version. Non-contiguous inputs are copied first.
+    version. Non-contiguous inputs are copied first; a head size the kernels
+    are not built for is zero-padded to the next one and O sliced back.
     """
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale)
+    d = q.shape[-1]
+    size = kernel_head_size(d)
+    q, k, v = (pad_head(x, size) for x in (q, k, v))
     _check_kernel_inputs(q, k, v)
     B, H, N, D = q.shape
     M = k.shape[2]
@@ -105,7 +134,7 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             B * H, N, M, D, float(scale), stream)
     _kernels.check_launch(code, "flash_attention_fwd")
     _kernels.LAUNCH_COUNTS["flash_attention_fwd"] += 1
-    return out, lse
+    return unpad_head(out, d), lse
 
 
 def flash_attention_backward_plain(
@@ -135,11 +164,17 @@ def flash_attention_backward(
 
     CUDA tensors launch the kernel or raise; CPU tensors take the plain
     version. Without ``need_dq`` the kernel skips its dq pass. Non-contiguous
-    inputs are copied first.
+    inputs are copied first; a head size the kernels are not built for is
+    zero-padded to the next one (q, k, v and do) and dq, dk, dv sliced back.
     """
     if not q.is_cuda:
         dq, dk, dv = flash_attention_backward_plain(q, k, v, do, lse, dsum, scale)
         return (dq if need_dq else None), dk, dv
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} does not match q {tuple(q.shape)}")
+    d = q.shape[-1]
+    size = kernel_head_size(d)
+    q, k, v, do = (pad_head(x, size) for x in (q, k, v, do))
     _check_kernel_inputs(q, k, v)
     B, H, N, D = q.shape
     M = k.shape[2]
@@ -164,7 +199,7 @@ def flash_attention_backward(
             dv.data_ptr(), B * H, N, M, D, float(scale), stream)
     _kernels.check_launch(code, "flash_attention_bwd")
     _kernels.LAUNCH_COUNTS["flash_attention_bwd"] += 1
-    return dq, dk, dv
+    return (None if dq is None else unpad_head(dq, d)), unpad_head(dk, d), unpad_head(dv, d)
 
 
 class _FlashAttention(torch.autograd.Function):

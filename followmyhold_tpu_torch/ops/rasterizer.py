@@ -16,19 +16,30 @@ How a render goes:
    its barycentrics (w1, w2), and the visibility product of the soft coverage.
    On a CUDA tensor this is the kernel pair csrc/raster_fwd.cu and
    csrc/raster_bwd.cu behind one ``torch.autograd.Function``; on a CPU tensor it
-   is ``raster_tiles_plain``, whose gradient is autograd of itself.
+   is ``raster_tiles_plain``, whose gradient is autograd of itself. The kernels
+   split each tile's list into chunks of ``RASTER_CHUNK`` slots
+   (``raster_chunk_plan``), one block a chunk.
 3. Depth and normal interpolation, and their gradients, are gathers on the
    winner ids in torch.
 
 Tie-break: the first face (lowest id) with a strictly smaller depth wins.
 Both windings are drawn. The silhouette sigma is in PIXELS. Coverage is
 clamped to 1 - 1e-3 so the visibility product's gradient stays finite.
+
+Reach: a face's coverage is 0 at a distance of 2 sigma or more, so a pixel
+outside the face's bounding box padded by ``RasterMeta.reach`` (2 sigma + 1
+pixel) neither meets the face nor changes its visibility. Both the kernels and
+the plain version skip such (pixel, face) pairs by the same float comparisons;
+the margin of a pixel keeps float rounding of the distance and of the edge
+functions from reaching past it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -44,6 +55,9 @@ _TILE_PIXELS = TILE_H * TILE_W
 _COV_CAP = 1.0 - 1e-3   # max per-face coverage: keeps d(prod)/d(cov) finite
 _PLAIN_STEP_ELEMS = 1 << 22   # tiles x faces x pixels per step of the plain version
 _BIG = 3.0e38
+# slots of a tile's list that one block of the kernels takes (csrc/raster_common.cuh
+# kChunk; the kernels refuse another value)
+RASTER_CHUNK = 64
 
 
 class RasterOut(NamedTuple):
@@ -63,6 +77,12 @@ class RasterMeta(NamedTuple):
     inv_sigma: float
     znear: float
     zfar: float
+
+    @property
+    def reach(self) -> float:
+        """Bounding-box padding beyond which a face cannot touch a pixel:
+        2 sigma (where the coverage reaches 0) + 1 pixel, as a float32."""
+        return float(np.float32(2.0 / self.inv_sigma + 1.0))
 
 
 # --------------------------------------------------------------------------- #
@@ -157,7 +177,13 @@ def _plain_chunk(geom, idx, in_list, uu, vv, best_z, best_s, best_w1, best_w2, v
     d_signed = torch.where(inside, dmin, -dmin)
     cov = (d_signed * (0.25 * meta.inv_sigma) + 0.5).clamp(0.0, _COV_CAP)
 
-    ok = in_list[..., None] & ~degen                 # [T,C,1]
+    # pairs beyond the face's reach are skipped, as the kernels skip them
+    r = meta.reach
+    near = ((uu >= torch.minimum(torch.minimum(x0, x1), x2) - r)
+            & (uu <= torch.maximum(torch.maximum(x0, x1), x2) + r)
+            & (vv >= torch.minimum(torch.minimum(y0, y1), y2) - r)
+            & (vv <= torch.maximum(torch.maximum(y0, y1), y2) + r))
+    ok = in_list[..., None] & ~degen & near          # [T,C,256]
     hit = inside & ok & (zpix > meta.znear) & (zpix < meta.zfar)
     zc = torch.where(hit, zpix, torch.full_like(zpix, _BIG))
     zmin, arg = zc.min(dim=1)                        # first minimum along the chunk
@@ -218,8 +244,27 @@ def raster_tiles_plain(geom: torch.Tensor, tile_start: torch.Tensor, meta: Raste
 
 
 # --------------------------------------------------------------------------- #
-# the kernels' wrappers
+# the kernels' chunk plan and wrappers
 # --------------------------------------------------------------------------- #
+
+def raster_chunk_plan(tile_start: torch.Tensor, n_slots: int):
+    """Cut every tile's list into chunks of at most ``RASTER_CHUNK`` consecutive
+    slots, on the device and without reading anything back to the host.
+
+    Tile t gets max(1, ceil(count_t / RASTER_CHUNK)) chunks (an empty tile one, whose
+    block writes the tile's empty outputs), numbered ``chunk_start[t]`` to
+    ``chunk_start[t+1] - 1``: chunk_start [T+1] int32 is their exclusive
+    cumulative sum. Returns (chunk_start, bound), where ``bound = T +
+    ceil(n_slots / RASTER_CHUNK)`` >= chunk_start[T] is known on the host and sizes
+    the kernels' grid and scratch; blocks past chunk_start[T] exit. A kernel
+    block finds its tile by a binary search in chunk_start."""
+    T = tile_start.numel() - 1
+    counts = tile_start[1:] - tile_start[:-1]
+    per_tile = ((counts + (RASTER_CHUNK - 1)) // RASTER_CHUNK).clamp_(min=1)
+    chunk_start = torch.zeros(T + 1, dtype=torch.int32, device=tile_start.device)
+    torch.cumsum(per_tile, 0, dtype=torch.int32, out=chunk_start[1:])
+    return chunk_start, T + math.ceil(n_slots / RASTER_CHUNK)
+
 
 def _check_kernel_inputs(geom: torch.Tensor, tile_start: torch.Tensor) -> None:
     if not geom.is_cuda or tile_start.device != geom.device:
@@ -232,29 +277,43 @@ def _check_kernel_inputs(geom: torch.Tensor, tile_start: torch.Tensor) -> None:
         raise ValueError("rasterizer kernels take contiguous tensors")
 
 
-def raster_tiles_forward(geom: torch.Tensor, tile_start: torch.Tensor, meta: RasterMeta):
-    """Launch the forward kernel: (w1, w2, slot, vis), each [T,16,16]."""
+def raster_tiles_forward(geom: torch.Tensor, tile_start: torch.Tensor, meta: RasterMeta,
+                         plan=None):
+    """Launch the forward kernel: (w1, w2, slot, vis), each [T,16,16].
+    ``plan`` is ``raster_chunk_plan(tile_start, P)``, made here if not given."""
     _check_kernel_inputs(geom, tile_start)
     T, P = tile_start.numel() - 1, geom.shape[1]
+    if plan is None:
+        plan = raster_chunk_plan(tile_start, P)
+    chunk_start, bound = plan
     w1 = torch.empty((T, TILE_H, TILE_W), dtype=torch.float32, device=geom.device)
     w2 = torch.empty_like(w1)
     vis = torch.empty_like(w1)
     slot = torch.empty((T, TILE_H, TILE_W), dtype=torch.int32, device=geom.device)
+    # per-chunk partial results (z, w1, w2, vis, slot) of the tiles with more
+    # than one chunk, merged in chunk order by the entry point's second launch
+    scratch = torch.empty((5, bound, _TILE_PIXELS), dtype=torch.float32, device=geom.device)
     lib = _kernels.load_library()
     with torch.cuda.device(geom.device):
         code = lib.fmh_raster_fwd(
-            geom.data_ptr(), tile_start.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-            slot.data_ptr(), vis.data_ptr(), T, P, meta.tiles_x, 0.25 * meta.inv_sigma,
-            meta.znear, meta.zfar, torch.cuda.current_stream().cuda_stream)
+            geom.data_ptr(), tile_start.data_ptr(), chunk_start.data_ptr(), w1.data_ptr(),
+            w2.data_ptr(), slot.data_ptr(), vis.data_ptr(), scratch.data_ptr(), T, P,
+            meta.tiles_x, bound, RASTER_CHUNK, 0.25 * meta.inv_sigma, meta.reach, meta.znear,
+            meta.zfar, torch.cuda.current_stream().cuda_stream)
     _kernels.check_launch(code, "raster_fwd")
     _kernels.LAUNCH_COUNTS["raster_fwd"] += 1
     return w1, w2, slot, vis
 
 
-def raster_tiles_backward(geom, tile_start, slot, vis, gw1, gw2, gvis, meta: RasterMeta):
-    """Launch the backward kernel: dgeom [9,P] (z rows are zero)."""
+def raster_tiles_backward(geom, tile_start, slot, vis, gw1, gw2, gvis, meta: RasterMeta,
+                          plan=None):
+    """Launch the backward kernel: dgeom [9,P] (z rows are zero), every column
+    written by one warp. ``plan`` as for ``raster_tiles_forward``."""
     _check_kernel_inputs(geom, tile_start)
     T, P = tile_start.numel() - 1, geom.shape[1]
+    if plan is None:
+        plan = raster_chunk_plan(tile_start, P)
+    chunk_start, bound = plan
     grads = [g.contiguous() for g in (gw1, gw2, gvis)]
     for x in (slot, vis, *grads):
         if x.device != geom.device or tuple(x.shape) != (T, TILE_H, TILE_W):
@@ -263,10 +322,10 @@ def raster_tiles_backward(geom, tile_start, slot, vis, gw1, gw2, gvis, meta: Ras
     lib = _kernels.load_library()
     with torch.cuda.device(geom.device):
         code = lib.fmh_raster_bwd(
-            geom.data_ptr(), tile_start.data_ptr(), slot.data_ptr(), vis.data_ptr(),
-            grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(), dgeom.data_ptr(),
-            T, P, meta.tiles_x, 0.25 * meta.inv_sigma,
-            torch.cuda.current_stream().cuda_stream)
+            geom.data_ptr(), tile_start.data_ptr(), chunk_start.data_ptr(), slot.data_ptr(),
+            vis.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
+            dgeom.data_ptr(), T, P, meta.tiles_x, bound, RASTER_CHUNK, 0.25 * meta.inv_sigma,
+            meta.reach, torch.cuda.current_stream().cuda_stream)
     _kernels.check_launch(code, "raster_bwd")
     _kernels.LAUNCH_COUNTS["raster_bwd"] += 1
     return dgeom
@@ -277,16 +336,18 @@ class _RasterTilesCuda(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, geom, tile_start, meta):
-        w1, w2, slot, vis = raster_tiles_forward(geom, tile_start, meta)
-        ctx.save_for_backward(geom, tile_start, slot, vis)
-        ctx.meta = meta
+        plan = raster_chunk_plan(tile_start, geom.shape[1])
+        w1, w2, slot, vis = raster_tiles_forward(geom, tile_start, meta, plan)
+        ctx.save_for_backward(geom, tile_start, slot, vis, plan[0])
+        ctx.meta, ctx.bound = meta, plan[1]
         ctx.mark_non_differentiable(slot)
         return w1, w2, slot, vis
 
     @staticmethod
     def backward(ctx, gw1, gw2, _gslot, gvis):
-        geom, tile_start, slot, vis = ctx.saved_tensors
-        dgeom = raster_tiles_backward(geom, tile_start, slot, vis, gw1, gw2, gvis, ctx.meta)
+        geom, tile_start, slot, vis, chunk_start = ctx.saved_tensors
+        dgeom = raster_tiles_backward(geom, tile_start, slot, vis, gw1, gw2, gvis, ctx.meta,
+                                      (chunk_start, ctx.bound))
         return dgeom, None, None
 
 
@@ -328,6 +389,19 @@ def bin_and_pack(camera: GuidanceCamera, verts: torch.Tensor, faces: torch.Tenso
     return TileInputs(tri, face_list, geom, tile_start, meta, bin_max)
 
 
+def pixel_face_rows(face_list: torch.Tensor, tile_start: torch.Tensor, slot: torch.Tensor,
+                    n_faces: int) -> torch.Tensor:
+    """The face row each pixel gathers ([T,16,16] int64): its winner's, and for a
+    pixel without one, row (pixel index mod n_faces). Those pixels' values are
+    masked out, so their gradient rows are exact zeros; spreading them keeps
+    the scatter-add of the gathers' backward, whose time grows with the longest
+    run of one index, from collecting some 10^5 of them in one row."""
+    pos = tile_start[:-1].long()[:, None, None] + slot.clamp(min=0).long()
+    fid = face_list[pos.clamp(max=face_list.numel() - 1)]
+    spread = torch.arange(slot.numel(), device=slot.device).reshape(slot.shape) % n_faces
+    return torch.where(slot >= 0, fid, spread)
+
+
 def rasterize(
     camera: GuidanceCamera,
     verts: torch.Tensor,         # [V,3] world (GL convention)
@@ -359,8 +433,7 @@ def rasterize(
 
     mask = slot >= 0
     if face_list.numel():
-        pos = tile_start[:-1].long()[:, None, None] + slot.clamp(min=0).long()
-        fid_safe = face_list[pos.clamp(max=face_list.numel() - 1)]
+        fid_safe = pixel_face_rows(face_list, tile_start, slot, tri.shape[0])
         corner = take_rows(tri, fid_safe)                     # [T,t,t,3,3]
         nrm = take_rows(tri_n, fid_safe)
         w0 = 1.0 - w1 - w2

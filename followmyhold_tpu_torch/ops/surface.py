@@ -28,7 +28,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from followmyhold_tpu_torch.ops.indexing import take_rows
+from followmyhold_tpu_torch.ops.indexing import scatter_rows_add, take_rows
 from followmyhold_tpu_torch.ops.safe import safe_normalize
 
 # Cube corners: id = 4*dx + 2*dy + dz  ->  (dx, dy, dz)
@@ -168,11 +168,12 @@ def face_normals(mesh: PaddedMesh, normalize: bool = True) -> torch.Tensor:
 
 
 def vertex_normals(mesh: PaddedMesh) -> torch.Tensor:
-    """Area-weighted vertex normals via scatter-add (differentiable)."""
+    """Area-weighted vertex normals via a deterministic scatter-add
+    (differentiable)."""
     fn = _face_cross(mesh) * mesh.face_mask[:, None]
-    vn = torch.zeros_like(mesh.verts)
-    for k in range(3):
-        vn = vn.index_add(0, mesh.faces[:, k], fn)
+    # corner-major, [3F]: a vertex sums its faces' normals as corner 0 of each,
+    # then corner 1, then corner 2, in face order (the reference's order)
+    vn = scatter_rows_add(mesh.verts.shape[0], mesh.faces.t().reshape(-1), fn.repeat(3, 1))
     return safe_normalize(vn)
 
 

@@ -216,3 +216,58 @@ def test_backward_wrapper_on_cpu_is_the_plain_version():
     assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), ref))
     none_dq, dk2, _ = TA.flash_attention_backward(q, k, v, do, lse, dsum, 0.125, need_dq=False)
     assert none_dq is None and torch.equal(dk2, dk)
+
+
+@pytest.mark.parametrize("d, size", [(16, 64), (64, 64), (72, 128), (80, 128), (128, 128)])
+def test_kernel_head_size_is_the_next_built_size(d, size):
+    assert TA.kernel_head_size(d) == size
+
+
+def test_kernel_head_size_above_128_raises():
+    with pytest.raises(NotImplementedError, match="up to 128"):
+        TA.kernel_head_size(129)
+
+
+@pytest.mark.parametrize("d", [72, 80])
+def test_head_padding_keeps_attention_and_gradients(d):
+    """What the kernel wrappers do for a head size they are not built for:
+    zero-pad q, k, v (and dO) to the next size, keep the true D's scale, and
+    slice O (dq, dk, dv) back. Zero columns add nothing to the logits, the
+    logsumexp or rowsum(dO * O), so the sliced results are the true ones: the
+    plain versions on padded inputs agree with them at the true D, forward and
+    backward (float32, sums of the same terms plus zeros: 1e-6)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(d, 256, 300, d=d))
+    do = torch.from_numpy(np.random.default_rng(d + 1).normal(size=q.shape).astype(np.float32))
+    scale = 1.0 / np.sqrt(d)
+    size = TA.kernel_head_size(d)
+    pq, pk, pv, pdo = (TA.pad_head(x, size) for x in (q, k, v, do))
+    assert pq.shape[-1] == size and (pq[..., d:] == 0).all()
+
+    out, lse = TA.flash_attention_plain(q, k, v, scale)
+    pout, plse = TA.flash_attention_plain(pq, pk, pv, scale)
+    assert (pout[..., d:] == 0).all()
+    np.testing.assert_allclose(TA.unpad_head(pout, d).numpy(), out.numpy(), atol=1e-6)
+    np.testing.assert_allclose(plse.numpy(), lse.numpy(), atol=1e-6)
+
+    dsum = (do * out).sum(-1)
+    np.testing.assert_allclose((pdo * pout).sum(-1).numpy(), dsum.numpy(), atol=1e-5)
+    want = TA.flash_attention_backward_plain(q, k, v, do, lse, dsum, scale)
+    got = TA.flash_attention_backward_plain(pq, pk, pv, pdo, plse, dsum, scale)
+    for g, w in zip(got, want):
+        assert g.shape[-1] == size and TA.unpad_head(g, d).shape == w.shape
+        np.testing.assert_allclose(TA.unpad_head(g, d).numpy(), w.numpy(), atol=1e-6)
+
+    # and autograd through the plain attention, the padding and the slice
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    (TA.attention_plain(*leaves, scale=scale) * do).sum().backward()
+    pleaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    sliced = TA.unpad_head(TA.attention_plain(*(TA.pad_head(x, size) for x in pleaves),
+                                              scale=scale), d)
+    (sliced * do).sum().backward()
+    for a, b in zip(pleaves, leaves):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=1e-6)
+
+
+def test_padding_helpers_leave_built_sizes_alone():
+    x = torch.zeros(1, 1, 4, 64)
+    assert TA.pad_head(x, 64) is x and TA.unpad_head(x, 64) is x

@@ -204,3 +204,93 @@ def test_entry_point_needs_an_existing_device():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TR.render_normal_and_disparity(TCAM, *_torch_args(*_irregular_mesh(n_tri=2)))
+
+
+def _chunk_lookup(chunk_start, tile_start, bound):
+    """What each block of the kernels finds for itself (csrc/raster_common.cuh
+    find_tile), in torch: for every block id below ``bound`` its (tile, first
+    slot of the tile's list, number of slots), tile -1 past the last chunk."""
+    T, chunk = tile_start.numel() - 1, TR.RASTER_CHUNK
+    ids = torch.arange(bound, dtype=torch.int32)
+    tile = torch.searchsorted(chunk_start[:T], ids, right=True).to(torch.int32) - 1
+    live = ids < chunk_start[T]
+    t = tile.clamp(min=0).long()
+    first = (ids - chunk_start[t]) * chunk
+    count = tile_start[t + 1] - tile_start[t]
+    n = torch.clamp(torch.minimum(count - first, torch.full_like(first, chunk)), min=0)
+    tile = torch.where(live, tile, torch.full_like(tile, -1))
+    return tile, torch.where(live, first, 0), torch.where(live, n, 0)
+
+
+def _check_plan(tile_start):
+    """The kernels' chunk plan covers every slot of every list once, with no
+    chunk crossing a tile, gives every tile (an empty one too) a chunk, and
+    stays within the host-known bound that sizes the grid."""
+    P, chunk = int(tile_start[-1]), TR.RASTER_CHUNK
+    chunk_start, bound = TR.raster_chunk_plan(tile_start, P)
+    T = tile_start.numel() - 1
+    counts = (tile_start[1:] - tile_start[:-1]).long()
+    assert chunk_start.dtype == torch.int32 and chunk_start.shape == (T + 1,)
+    assert bound == T + -(-P // chunk) and int(chunk_start[-1]) <= bound
+    assert (chunk_start[1:] > chunk_start[:-1]).all()          # every tile has a chunk
+    tile, first, n = _chunk_lookup(chunk_start, tile_start, bound)
+    live = tile >= 0
+    assert int(live.sum()) == int(chunk_start[-1]) and not live[int(chunk_start[-1]):].any()
+    covered = torch.zeros(P, dtype=torch.long)
+    for t, f, m in zip(tile[live].tolist(), first[live].tolist(), n[live].tolist()):
+        assert 0 <= m <= chunk and f % chunk == 0
+        assert f + m <= counts[t] and (m > 0 or counts[t] == 0)  # inside its own tile
+        covered[int(tile_start[t]) + f:int(tile_start[t]) + f + m] += 1
+    assert (covered == 1).all()
+    return chunk_start
+
+
+@pytest.mark.parametrize("counts", [[0, 3, 0, 0, 64, 1, 5 * 64 + 3, 0, 128, 65],
+                                    [0, 0, 0], [700], [1] * 7],
+                         ids=["mixed", "all_empty", "one_long_tile", "short_tiles"])
+def test_chunk_plan_covers_every_slot_once(counts):
+    tile_start = torch.zeros(len(counts) + 1, dtype=torch.int32)
+    tile_start[1:] = torch.cumsum(torch.tensor(counts), 0)
+    chunk_start = _check_plan(tile_start)
+    per_tile = (chunk_start[1:] - chunk_start[:-1]).tolist()
+    assert per_tile == [max(1, -(-c // TR.RASTER_CHUNK)) for c in counts]
+
+
+def test_chunk_plan_of_a_binned_mesh():
+    v, f, n, m = _torch_args(*_irregular_mesh(n_tri=40))
+    packed = TR.bin_and_pack(TCAM, v, f, m, 0.7, 64)
+    _check_plan(packed.tile_start)
+
+
+def test_plain_version_skips_pairs_beyond_the_reach():
+    """A pixel outside a face's bounding box padded by the reach (2 sigma +
+    1 px) has coverage 0 and is not inside: skipping those pairs, as the
+    kernels do, leaves the outputs as the full arithmetic gives them. Here a
+    sigma so large that every pair is in reach renders the same winners and
+    slots as the default, and the reach is 2 sigma + 1 px."""
+    meta = TR.RasterMeta(tiles_x=8, inv_sigma=1.0 / 0.7, znear=0.01, zfar=100.0)
+    assert meta.reach == pytest.approx(2 * 0.7 + 1.0) and isinstance(meta.reach, float)
+    v, f, n, m = _torch_args(*_irregular_mesh(n_tri=30, seed=3))
+    packed = TR.bin_and_pack(TCAM, v, f, m, 0.7, 64)
+    w1, w2, slot, vis = TR.raster_tiles_plain(packed.geom, packed.tile_start, packed.meta)
+    far = packed.meta._replace(inv_sigma=1.0 / 400.0)    # reach beyond the image
+    fw1, fw2, fslot, _ = TR.raster_tiles_plain(packed.geom, packed.tile_start, far)
+    assert torch.equal(slot, fslot) and torch.equal(w1, fw1) and torch.equal(w2, fw2)
+    assert (vis < 1).any() and ((vis >= 0) & (vis <= 1)).all()
+
+
+def test_pixel_face_rows_spread_the_pixels_without_a_winner():
+    """Winners gather their face; the others, whose values are masked out,
+    gather rows spread by pixel index, so no row collects them all."""
+    v, f, n, m = _torch_args(*_irregular_mesh(n_tri=6, seed=2))
+    packed = TR.bin_and_pack(TCAM, v, f, m, 0.7, 64)
+    _, _, slot, _ = TR.raster_tiles_plain(packed.geom, packed.tile_start, packed.meta)
+    rows = TR.pixel_face_rows(packed.face_list, packed.tile_start, slot, 6)
+    hit = slot >= 0
+    assert hit.any() and (~hit).any()
+    pos = packed.tile_start[:-1].long()[:, None, None] + slot.clamp(min=0).long()
+    assert torch.equal(rows[hit], packed.face_list[pos[hit]])
+    flat = torch.arange(slot.numel()).reshape(slot.shape)
+    assert torch.equal(rows[~hit], flat[~hit] % 6)
+    out = TR.rasterize(TCAM, v, f, n, m, faces_per_tile=64, device="cpu")
+    assert torch.equal(TR._untile(torch.where(hit, rows, -1), 8, 8), out.face_id)
