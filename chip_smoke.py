@@ -57,11 +57,16 @@ Tolerances, and why:
   shape (N, M not multiples of 64) runs the masks.
 - rasterizer forward: winner slots must agree on all but 0.1 % of the pixels
   (the arithmetic is bit-identical by construction; the margin is for depth
-  ties). Where they agree, w1, w2 to 1e-5 and vis to 1e-4 (the visibility
-  product is taken in another order). Checked at the hand and the object
-  shape, forward and backward: two calls give the same bits, and the checked
-  call follows a call on other inputs of the same shapes, so a pixel or a
-  dgeom column the kernels leave unwritten holds another value.
+  ties, and for the kernels' cull: they skip the (pixel, face) pairs beyond a
+  face's padded bounding box, which the plain version evaluates, and the two
+  differ where rounding puts such a pixel "inside" a sliver face). Where they
+  agree, w1, w2 to 1e-5 and vis to 1e-4 (the visibility product is taken in
+  another order). The counts of pixels that differ are printed. The chunk
+  plan that the kernels run on must equal its plain version. Checked at the
+  hand and the object shape, forward and backward: two calls give the same
+  bits, and the checked call follows a call on other inputs of the same
+  shapes, so a pixel or a dgeom column the kernels leave unwritten holds
+  another value.
 - rasterizer backward: 2e-2 * max|ref| against autograd of the plain version
   (the tolerance of the reference's own kernel test), and all but 1 % of the
   entries within 1e-4 * max|ref|. Nearly every entry agrees to summation order.
@@ -408,7 +413,7 @@ def _check_raster_shape(R, tag, packed, gen) -> tuple:
     del again
     geom_p = geom.clone().requires_grad_(True)
     ref = R.raster_tiles_plain(geom_p, tile_start, meta)
-    err_f, mismatch = _compare_forward(tag, got, ref)
+    cmp = _compare_forward(tag, got, ref)
 
     gw1, gw2, gvis = (torch.randn(got[0].shape, generator=gen, device=geom.device)
                       for _ in range(3))
@@ -432,12 +437,13 @@ def _check_raster_shape(R, tag, packed, gen) -> tuple:
              f"{loose_b:.2%} of the entries beyond 1e-4 of the maximum")
     del ref, ref_dgeom, geom_p
 
-    # device time per wrapper call (chunk plan and kernels) from the replay of a
-    # CUDA graph; the eager time also holds the host's share of a call
+    # ms per wrapper call (chunk plan and kernels) run eagerly, as the main path
+    # runs it, which holds the host's share of a call where that is the larger;
+    # graph_ms from the replay of a CUDA graph, the device's time alone
     fwd_t = time_call(lambda: R.raster_tiles_forward(geom, tile_start, meta))
     bwd_t = time_call(lambda: R.raster_tiles_backward(
         geom, tile_start, got[2], got[3], gw1, gw2, gvis, meta))
-    fwd_ms, bwd_ms = fwd_t["graph_ms"], bwd_t["graph_ms"]
+    fwd_ms, bwd_ms = fwd_t["eager_ms"], bwd_t["eager_ms"]
     with torch.no_grad():
         plain_fwd_ms = cuda_ms(lambda: R.raster_tiles_plain(geom, tile_start, meta), 1, 2)
 
@@ -454,32 +460,57 @@ def _check_raster_shape(R, tag, packed, gen) -> tuple:
     fwd_all, _ = _raster_bound(tile_start, pairs, _RASTER_FWD_OPS, 36, 16)
     bwd_all, _ = _raster_bound(tile_start, pairs, _RASTER_BWD_OPS, 72, 20)
     counts = (tile_start[1:] - tile_start[:-1]).long()
-    plan_chunks = int(R.raster_chunk_plan(tile_start, geom.shape[1])[0][-1].item())
+    plan = _check_chunk_plan(R, tag, tile_start, geom.shape[1])
     common = dict(faces=int(packed.tri.shape[0]), columns=int(geom.shape[1]),
-                  longest_list=int(counts.max().item()), chunks=plan_chunks,
+                  longest_list=int(counts.max().item()), chunks=plan["chunks"],
                   pixel_face_pairs=pairs, pairs_after_cull=near)
-    fwd = dict(common, ms=fwd_ms, eager_ms=fwd_t["eager_ms"], plain_ms=plain_fwd_ms,
-               bound_ms=fwd_bound, bound_by=fwd_by,
-               bound_ms_all_pairs=fwd_all, max_abs_err=err_f, slot_mismatch=mismatch)
-    bwd = dict(common, ms=bwd_ms, eager_ms=bwd_t["eager_ms"], plain_ms=plain_bwd_ms,
+    fwd = dict(common, ms=fwd_ms, graph_ms=fwd_t["graph_ms"], plain_ms=plain_fwd_ms,
+               bound_ms=fwd_bound, bound_by=fwd_by, bound_ms_all_pairs=fwd_all, **cmp)
+    bwd = dict(common, ms=bwd_ms, graph_ms=bwd_t["graph_ms"], plain_ms=plain_bwd_ms,
                bound_ms=bwd_bound, bound_by=bwd_by,
                bound_ms_all_pairs=bwd_all, max_abs_err=err_b, max_abs_ref=ref_max,
                loose_share=loose_b)
     say(f"kernel raster_fwd {tag} 512^2 F={common['faces']} P={geom.shape[1]} (longest list "
-        f"{common['longest_list']}, {plan_chunks} chunks of {R.RASTER_CHUNK}): err {err_f:.3e} "
-        f"slot mismatch {mismatch:.2e}; same bits in two calls; kernel {fwd_ms:.4f} ms (eager "
-        f"{fwd_t['eager_ms']:.4f}) plain "
-        f"{plain_fwd_ms:.3f} ms; bound {fwd_bound:.4f} ms for {near:.0f} pairs within reach "
-        f"({fwd_all:.4f} ms for all {pairs:.0f} pairs)")
+        f"{common['longest_list']}, {plan['chunks']} chunks of {R.RASTER_CHUNK}) against the "
+        f"plain version (every pair): slots differ on {cmp['slot_mismatch_pixels']} pixels, w by "
+        f"{cmp['w_err']:.3e} where they agree, vis by {cmp['vis_err']:.3e} (beyond 1e-6 on "
+        f"{cmp['vis_pixels_beyond_1e-6']} pixels); same bits in two calls; kernel {fwd_ms:.4f} ms "
+        f"(graph replay {fwd_t['graph_ms']:.4f}) plain {plain_fwd_ms:.3f} ms; bound "
+        f"{fwd_bound:.4f} ms for {near:.0f} pairs within reach ({fwd_all:.4f} ms for all "
+        f"{pairs:.0f} pairs)")
     say(f"kernel raster_bwd {tag} 512^2: err {err_b:.3e} (max|ref| {ref_max:.3e}, {loose_b:.2e} "
-        f"of the entries beyond 1e-4 of it); same bits in two calls; kernel {bwd_ms:.4f} ms (eager "
-        f"{bwd_t['eager_ms']:.4f}) "
-        f"plain {plain_bwd_ms:.3f} ms; bound {bwd_bound:.4f} ms within reach ({bwd_all:.4f} ms "
-        f"all pairs)")
-    return fwd, bwd, got
+        f"of the entries beyond 1e-4 of it); same bits in two calls; kernel {bwd_ms:.4f} ms "
+        f"(graph replay {bwd_t['graph_ms']:.4f}) plain {plain_bwd_ms:.3f} ms; bound "
+        f"{bwd_bound:.4f} ms within reach ({bwd_all:.4f} ms all pairs)")
+    return fwd, bwd, plan, got
 
 
-def _compare_forward(tag, got, ref):
+def _check_chunk_plan(R, tag, tile_start, n_slots) -> dict:
+    """The chunk plan kernel (ops/rasterizer.raster_chunk_plan) against its
+    plain version, exactly, right after a call on other inputs."""
+    from followmyhold_tpu_torch.tools.time_raster_kernels import time_call
+
+    other = R.raster_chunk_plan(tile_start * 3, 3 * n_slots)
+    del other
+    got, bound = R.raster_chunk_plan(tile_start, n_slots)
+    want, want_bound = R.raster_chunk_plan_plain(tile_start, n_slots)
+    if not (torch.equal(got, want) and bound == want_bound):
+        fail(f"raster chunk plan {tag}: differs from its plain version")
+    t = time_call(lambda: R.raster_chunk_plan(tile_start, n_slots))
+    plain = time_call(lambda: R.raster_chunk_plan_plain(tile_start, n_slots))
+    T = tile_start.numel() - 1
+    t_bytes = (2 * T + 2) * 4.0 / _HBM_BYTES * 1e3
+    chunks = int(got[-1].item())
+    say(f"kernel raster_chunk_plan {tag} T={T}: {chunks} chunks (grid bound {bound}), equal to "
+        f"the plain version; kernel {t['eager_ms']:.4f} ms (graph replay {t['graph_ms']:.4f}), "
+        f"plain {plain['eager_ms']:.4f} ms (graph replay {plain['graph_ms']:.4f})")
+    return dict(tiles=T, chunks=chunks, grid_bound=bound, ms=t["eager_ms"],
+                graph_ms=t["graph_ms"], plain_ms=plain["eager_ms"],
+                plain_graph_ms=plain["graph_ms"], bound_ms=t_bytes, bound_by="bytes",
+                max_abs_err=0.0)
+
+
+def _compare_forward(tag, got, ref) -> dict:
     w1, w2, slot, vis = got
     rw1, rw2, rslot, rvis = ref
     same = slot == rslot
@@ -487,18 +518,23 @@ def _compare_forward(tag, got, ref):
     if mismatch > 1e-3:
         fail(f"raster forward {tag}: winner slots differ on {mismatch:.2%} of the pixels")
     err_w = max((w1 - rw1)[same].abs().max().item(), (w2 - rw2)[same].abs().max().item())
-    err_v = (vis - rvis).abs().max().item()
+    dvis = (vis - rvis).abs()
+    err_v = dvis.max().item()
     if not (err_w <= 1e-5 and err_v <= 1e-4):
         fail(f"raster forward {tag}: w differs by {err_w}, vis by {err_v}")
-    return max(err_w, err_v), mismatch
+    return {"max_abs_err": max(err_w, err_v), "slot_mismatch": mismatch,
+            "slot_mismatch_pixels": int((~same).sum().item()), "w_err": err_w, "vis_err": err_v,
+            "vis_pixels_beyond_1e-6": int((dvis > 1e-6).sum().item())}
 
 
 def check_scatter(dev, R, packed, slot, sphere) -> dict:
     """The deterministic row scatter-add (csrc/scatter_rows.cu behind
     ops/indexing.scatter_rows_add), the backward of every take_rows, held
-    against a float64 index_add_ on the same inputs at two shapes: the
-    render's per-pixel gather (the face rows of 262,144 pixels, 9 floats each,
-    rasterize's pixel_face_rows), the most launched, and the corner gather of
+    against a float64 index_add_ on the same inputs at three shapes: the
+    render's per-pixel gather (the face rows of 262,144 pixels, 9 floats each),
+    the most launched (a pixel without a winner gathers its tile's first face,
+    as rasterize does; also timed with those pixels spread over the rows by
+    pixel index instead), and the corner gather of
     the marching-tets sphere padded to the path's 65,536-face capacity (3 floats
     a corner into 32,768 vertex rows; every padded face is (0, 0, 0), so vertex
     0 holds a run of some 10^4).
@@ -513,8 +549,12 @@ def check_scatter(dev, R, packed, slot, sphere) -> dict:
     from followmyhold_tpu_torch.tools.time_raster_kernels import time_call
 
     n_faces = packed.tri.shape[0]
-    fid = R.pixel_face_rows(packed.face_list, packed.tile_start, slot, n_faces).reshape(-1)
+    pos = packed.tile_start[:-1].long()[:, None, None] + slot.clamp(min=0).long()
+    fid = packed.face_list[pos.clamp(max=packed.face_list.numel() - 1)].reshape(-1)
+    spread = torch.where(slot.reshape(-1) >= 0, fid,
+                         torch.arange(fid.numel(), device=dev) % n_faces)
     shapes = [("render_gather", n_faces, fid, 9),
+              ("render_gather_spread", n_faces, spread, 9),
               ("padded_mesh_corners", sphere.verts.shape[0], sphere.faces.reshape(-1), 3)]
     gen = torch.Generator(device=dev).manual_seed(11)
     per_shape = []
@@ -545,17 +585,18 @@ def check_scatter(dev, R, packed, slot, sphere) -> dict:
         nbytes = index.numel() * (8.0 + 4.0 * cols) + n_rows * 4.0 * cols
         t_bytes, t_ops = nbytes / _HBM_BYTES * 1e3, index.numel() * cols / _F32_FLOPS * 1e3
         per_shape.append(dict(shape=label, rows=index.numel(), n_rows=n_rows, cols=cols,
-                              longest_run=longest, max_abs_err=err, ms=t["graph_ms"],
-                              eager_ms=t["eager_ms"], plain_ms=lib["graph_ms"],
-                              library_ms=lib["graph_ms"], bound_ms=max(t_bytes, t_ops),
+                              longest_run=longest, max_abs_err=err, ms=t["eager_ms"],
+                              graph_ms=t["graph_ms"], plain_ms=lib["eager_ms"],
+                              library_ms=lib["eager_ms"], library_graph_ms=lib["graph_ms"],
+                              bound_ms=max(t_bytes, t_ops),
                               bound_by="bytes" if t_bytes >= t_ops else "operations"))
         say(f"kernel scatter_rows_add {label} {index.numel()} rows -> {n_rows} x {cols} (longest "
             f"run {longest}): max |diff| to float64 {err:.3e}; same bits in two calls, no host "
-            f"sync; kernel {t['graph_ms']:.4f} ms (eager {t['eager_ms']:.4f}), atomic "
-            f"index_add_ {lib['graph_ms']:.4f} ms (eager {lib['eager_ms']:.4f}); bound "
+            f"sync; kernel {t['eager_ms']:.4f} ms (graph replay {t['graph_ms']:.4f}), atomic "
+            f"index_add_ {lib['eager_ms']:.4f} ms (graph replay {lib['graph_ms']:.4f}); bound "
             f"{max(t_bytes, t_ops):.4f} ms")
     head = per_shape[0]
-    return dict(name="scatter_rows_add", route="cuda",
+    return dict(name="scatter_rows_add", route="cuda", graph_ms=head["graph_ms"],
                 source="followmyhold_tpu_torch/csrc/scatter_rows.cu",
                 replaces="followmyhold_tpu/ops/rasterizer.py:601",
                 replaces_note="no Pallas kernel: the gradient of the reference's gathers "
@@ -576,7 +617,7 @@ def check_rasterizer(dev) -> list:
     mano, verts, camera, _ = hand_scene(dev, 512)
     faces = mano.faces
     packed = _tile_inputs(camera, verts, faces, 2048)
-    fwd_h, bwd_h, got_h = _check_raster_shape(R, "hand", packed, gen)
+    fwd_h, bwd_h, plan_h, got_h = _check_raster_shape(R, "hand", packed, gen)
 
     # --- the hand mesh through rasterize(): gradients to the vertices ------ #
     normals = vertex_normals(PaddedMesh(verts, faces, torch.ones(verts.shape[0], device=dev),
@@ -619,7 +660,7 @@ def check_rasterizer(dev) -> list:
     nf = sphere.num_faces
     obj_verts = sphere.verts * 0.25 + torch.tensor([0.0, 0.0, -0.8], device=dev)
     packed_o = _tile_inputs(camera, obj_verts, sphere.faces[:nf], 24576)
-    fwd_o, bwd_o, _ = _check_raster_shape(R, "object", packed_o, gen)
+    fwd_o, bwd_o, plan_o, _ = _check_raster_shape(R, "object", packed_o, gen)
     bin_ms = cuda_ms(lambda: _tile_inputs(camera, obj_verts, sphere.faces[:nf], 24576), 1, 5)
     fwd_o["bin_and_pack_ms"] = bin_ms
     say(f"raster object 512^2: projecting, binning and packing it (torch ops) {bin_ms:.3f} ms")
@@ -629,17 +670,24 @@ def check_rasterizer(dev) -> list:
         return dict(name=name, route="cuda", source=f"followmyhold_tpu_torch/csrc/{src}",
                     replaces=f"followmyhold_tpu/ops/rasterizer.py:{line}",
                     max_abs_err=max(hand["max_abs_err"], obj["max_abs_err"]), ms=hand["ms"],
-                    plain_ms=hand["plain_ms"], bound_ms=hand["bound_ms"],
-                    bound_by=hand["bound_by"], library_ms=None, chunk=R.RASTER_CHUNK,
-                    pixel_face_pairs=hand["pixel_face_pairs"],
-                    pairs_after_cull=hand["pairs_after_cull"],
-                    bound_ms_all_pairs=hand["bound_ms_all_pairs"], hand_mesh=hand,
-                    object_mesh=obj, **extra)
+                    graph_ms=hand["graph_ms"], plain_ms=hand["plain_ms"],
+                    bound_ms=hand["bound_ms"], bound_by=hand["bound_by"], library_ms=None,
+                    chunk=R.RASTER_CHUNK, hand_mesh=hand, object_mesh=obj, **extra)
 
     fwd = entry("raster_fwd", "raster_fwd.cu", 506, fwd_h, fwd_o,
+                pixel_face_pairs=fwd_h["pixel_face_pairs"],
+                pairs_after_cull=fwd_h["pairs_after_cull"],
+                bound_ms_all_pairs=fwd_h["bound_ms_all_pairs"],
                 slot_mismatch=max(fwd_h["slot_mismatch"], fwd_o["slot_mismatch"]))
-    bwd = entry("raster_bwd", "raster_bwd.cu", 530, bwd_h, bwd_o, vertex_grad_err=err_gv)
-    return [fwd, bwd, scatter]
+    bwd = entry("raster_bwd", "raster_bwd.cu", 530, bwd_h, bwd_o,
+                pixel_face_pairs=bwd_h["pixel_face_pairs"],
+                pairs_after_cull=bwd_h["pairs_after_cull"],
+                bound_ms_all_pairs=bwd_h["bound_ms_all_pairs"], vertex_grad_err=err_gv)
+    plan = entry("raster_chunk_plan", "raster_fwd.cu", 506, plan_h, plan_o,
+                 replaces_note="no Pallas kernel of its own: the TPU kernel's grid (T, K // C) "
+                               "walks a tile's chunks in one program; this plan maps a chunk "
+                               "to its tile for one block a chunk")
+    return [plan, fwd, bwd, scatter]
 
 
 # --------------------------------------------------------------------------- #
@@ -823,6 +871,9 @@ def run_main_path(dev) -> dict:
     if launches["raster_fwd"] < want_raster or launches["raster_bwd"] < want_raster:
         fail(f"rasterizer launched {launches['raster_fwd']} / {launches['raster_bwd']} times, "
              f"expected at least {want_raster} each")
+    if launches["raster_chunk_plan"] < want_raster:
+        fail(f"the raster chunk plan launched {launches['raster_chunk_plan']} times, expected "
+             f"at least {want_raster}")
     # the backward of every render scatters the two per-pixel gathers (corners, normals)
     if launches["scatter_rows_add"] < 2 * want_raster:
         fail(f"scatter_rows_add launched {launches['scatter_rows_add']} times, expected at "

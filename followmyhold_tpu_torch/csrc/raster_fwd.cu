@@ -16,8 +16,9 @@
 // - A tile is 16x16 pixels, one thread a pixel. A tile's faces are packed
 //   contiguously (`tile_start[T+1]` into `geom[9, P]`).
 // - The unit of work is a chunk of at most kChunk consecutive slots of one
-//   tile's list (`chunk_start`, the plan built on the device by
-//   ops/rasterizer.py raster_chunk_plan), one block a chunk. A dense tile's
+//   tile's list (`chunk_start`, the plan that `chunk_plan_kernel` below builds
+//   on the device, as ops/rasterizer.py raster_chunk_plan_plain states it),
+//   one block a chunk. A dense tile's
 //   long list is spread over many blocks and SMs instead of one block walking
 //   it serially. A tile with one chunk, most of them, writes its outputs
 //   directly. The chunks of a longer tile leave partial results (first
@@ -155,7 +156,56 @@ raster_fwd_merge_kernel(const int* __restrict__ chunk_start, float* __restrict__
   vis_out[out] = vis;
 }
 
+// The chunk plan, one block: chunk_start[0] = 0 and chunk_start[t+1] =
+// chunk_start[t] + max(1, ceil(count_t / kChunk)), an inclusive scan over the
+// tiles kPlanThreads at a time (warp shuffles, then the warps' totals).
+constexpr int kPlanThreads = 1024;
+
+__global__ void __launch_bounds__(kPlanThreads)
+chunk_plan_kernel(const int* __restrict__ tile_start, int T, int* __restrict__ chunk_start) {
+  __shared__ int warp_total[kPlanThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) chunk_start[0] = 0;
+  int carry = 0;  // chunks of the tiles before this round
+  for (int base = 0; base < T; base += kPlanThreads) {
+    const int t = base + tid;
+    int x = 0;
+    if (t < T) x = max(1, (tile_start[t + 1] - tile_start[t] + kChunk - 1) / kChunk);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, off);
+      if (lane >= off) x += y;
+    }
+    if (lane == 31) warp_total[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int w = warp_total[lane];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, off);
+        if (lane >= off) w += y;
+      }
+      warp_total[lane] = w;
+    }
+    __syncthreads();
+    if (t < T) chunk_start[t + 1] = carry + (warp > 0 ? warp_total[warp - 1] : 0) + x;
+    carry += warp_total[kPlanThreads / 32 - 1];
+    __syncthreads();  // warp_total is rewritten by the next round
+  }
+}
+
 }  // namespace
+
+// tile_start [T+1] i32 -> chunk_start [T+1] i32, the chunk plan of the
+// forward and backward kernels. `chunk` must be kChunk. Returns
+// cudaGetLastError() after the launch.
+extern "C" int fmh_raster_chunk_plan(const void* tile_start, void* chunk_start, int T, int chunk,
+                                     void* stream) {
+  if (chunk != raster::kChunk || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  chunk_plan_kernel<<<1, kPlanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(tile_start), T, static_cast<int*>(chunk_start));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // geom [9,P] f32, tile_start [T+1] i32, chunk_start [T+1] i32 (the chunk
 // plan); w1, w2, vis f32 and slot i32 [T,16,16]; scratch f32 [5, n_grid, 256]

@@ -37,8 +37,8 @@ _SOURCES = {
 }
 _HEADERS = ["hopper_common.cuh", "raster_common.cuh"]
 
-LAUNCH_COUNTS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "raster_fwd": 0,
-                 "raster_bwd": 0, "scatter_rows_add": 0}
+LAUNCH_COUNTS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "raster_chunk_plan": 0,
+                 "raster_fwd": 0, "raster_bwd": 0, "scatter_rows_add": 0}
 
 # The C signature of every entry point, parameter by parameter: "p" a pointer
 # (or the stream), "i" an int, "f" a float; each returns an int error code.
@@ -47,6 +47,7 @@ LAUNCH_COUNTS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "raster_fwd
 ENTRY_POINTS = {
     "fmh_flash_attention_fwd": "pppppiiiifp",
     "fmh_flash_attention_bwd": "pppppppppiiiifp",
+    "fmh_raster_chunk_plan": "ppiip",
     "fmh_raster_fwd": "ppppppppiiiiiffffp",
     "fmh_raster_bwd": "pppppppppiiiiiffp",
     "fmh_scatter_rows_add": "ppppiiip",

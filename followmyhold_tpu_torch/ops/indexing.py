@@ -88,9 +88,11 @@ def scatter_rows_add(n_rows: int, index: torch.Tensor, src: torch.Tensor) -> tor
     index = index.reshape(-1)
     if src.shape[0] != index.numel():
         raise ValueError(f"src has {src.shape[0]} rows for {index.numel()} indices")
-    if src.is_cuda:
+    if not src.is_cuda:
+        return scatter_rows_add_plain(n_rows, index, src)
+    if torch.is_grad_enabled() and src.requires_grad:
         return _ScatterRowsAdd.apply(n_rows, index, src)
-    return scatter_rows_add_plain(n_rows, index, src)
+    return scatter_rows_add_forward(n_rows, index, src)   # e.g. inside take_rows' backward
 
 
 class _TakeRows(torch.autograd.Function):

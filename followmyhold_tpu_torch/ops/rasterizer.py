@@ -28,10 +28,11 @@ clamped to 1 - 1e-3 so the visibility product's gradient stays finite.
 
 Reach: a face's coverage is 0 at a distance of 2 sigma or more, so a pixel
 outside the face's bounding box padded by ``RasterMeta.reach`` (2 sigma + 1
-pixel) neither meets the face nor changes its visibility. Both the kernels and
-the plain version skip such (pixel, face) pairs by the same float comparisons;
-the margin of a pixel keeps float rounding of the distance and of the edge
-functions from reaching past it.
+pixel) does not change the face's visibility factor. The kernels skip such
+(pixel, face) pairs; the plain version, the yardstick, evaluates every pair.
+The two differ only where float rounding puts a far pixel "inside" a sliver
+face (all three edge functions within rounding of zero, on the line of a face
+seen edge-on): the plain version then counts the pair, the kernels do not.
 """
 
 from __future__ import annotations
@@ -177,13 +178,7 @@ def _plain_chunk(geom, idx, in_list, uu, vv, best_z, best_s, best_w1, best_w2, v
     d_signed = torch.where(inside, dmin, -dmin)
     cov = (d_signed * (0.25 * meta.inv_sigma) + 0.5).clamp(0.0, _COV_CAP)
 
-    # pairs beyond the face's reach are skipped, as the kernels skip them
-    r = meta.reach
-    near = ((uu >= torch.minimum(torch.minimum(x0, x1), x2) - r)
-            & (uu <= torch.maximum(torch.maximum(x0, x1), x2) + r)
-            & (vv >= torch.minimum(torch.minimum(y0, y1), y2) - r)
-            & (vv <= torch.maximum(torch.maximum(y0, y1), y2) + r))
-    ok = in_list[..., None] & ~degen & near          # [T,C,256]
+    ok = in_list[..., None] & ~degen                 # [T,C,1]
     hit = inside & ok & (zpix > meta.znear) & (zpix < meta.zfar)
     zc = torch.where(hit, zpix, torch.full_like(zpix, _BIG))
     zmin, arg = zc.min(dim=1)                        # first minimum along the chunk
@@ -247,9 +242,9 @@ def raster_tiles_plain(geom: torch.Tensor, tile_start: torch.Tensor, meta: Raste
 # the kernels' chunk plan and wrappers
 # --------------------------------------------------------------------------- #
 
-def raster_chunk_plan(tile_start: torch.Tensor, n_slots: int):
+def raster_chunk_plan_plain(tile_start: torch.Tensor, n_slots: int):
     """Cut every tile's list into chunks of at most ``RASTER_CHUNK`` consecutive
-    slots, on the device and without reading anything back to the host.
+    slots, on the tensor's device and without reading anything back to the host.
 
     Tile t gets max(1, ceil(count_t / RASTER_CHUNK)) chunks (an empty tile one, whose
     block writes the tile's empty outputs), numbered ``chunk_start[t]`` to
@@ -263,6 +258,25 @@ def raster_chunk_plan(tile_start: torch.Tensor, n_slots: int):
     per_tile = ((counts + (RASTER_CHUNK - 1)) // RASTER_CHUNK).clamp_(min=1)
     chunk_start = torch.zeros(T + 1, dtype=torch.int32, device=tile_start.device)
     torch.cumsum(per_tile, 0, dtype=torch.int32, out=chunk_start[1:])
+    return chunk_start, T + math.ceil(n_slots / RASTER_CHUNK)
+
+
+def raster_chunk_plan(tile_start: torch.Tensor, n_slots: int):
+    """``raster_chunk_plan_plain``'s result: on a CUDA tensor one launch of the
+    plan kernel (csrc/raster_fwd.cu), which takes the host a fraction of the
+    torch ops' time; on a CPU tensor the plain version."""
+    if not tile_start.is_cuda:
+        return raster_chunk_plan_plain(tile_start, n_slots)
+    if tile_start.dtype != torch.int32 or not tile_start.is_contiguous():
+        raise ValueError("tile_start must be contiguous int32 [T+1]")
+    T = tile_start.numel() - 1
+    chunk_start = torch.empty(T + 1, dtype=torch.int32, device=tile_start.device)
+    lib = _kernels.load_library()
+    with torch.cuda.device(tile_start.device):
+        code = lib.fmh_raster_chunk_plan(tile_start.data_ptr(), chunk_start.data_ptr(), T,
+                                         RASTER_CHUNK, torch.cuda.current_stream().cuda_stream)
+    _kernels.check_launch(code, "raster_chunk_plan")
+    _kernels.LAUNCH_COUNTS["raster_chunk_plan"] += 1
     return chunk_start, T + math.ceil(n_slots / RASTER_CHUNK)
 
 
@@ -389,19 +403,6 @@ def bin_and_pack(camera: GuidanceCamera, verts: torch.Tensor, faces: torch.Tenso
     return TileInputs(tri, face_list, geom, tile_start, meta, bin_max)
 
 
-def pixel_face_rows(face_list: torch.Tensor, tile_start: torch.Tensor, slot: torch.Tensor,
-                    n_faces: int) -> torch.Tensor:
-    """The face row each pixel gathers ([T,16,16] int64): its winner's, and for a
-    pixel without one, row (pixel index mod n_faces). Those pixels' values are
-    masked out, so their gradient rows are exact zeros; spreading them keeps
-    the scatter-add of the gathers' backward, whose time grows with the longest
-    run of one index, from collecting some 10^5 of them in one row."""
-    pos = tile_start[:-1].long()[:, None, None] + slot.clamp(min=0).long()
-    fid = face_list[pos.clamp(max=face_list.numel() - 1)]
-    spread = torch.arange(slot.numel(), device=slot.device).reshape(slot.shape) % n_faces
-    return torch.where(slot >= 0, fid, spread)
-
-
 def rasterize(
     camera: GuidanceCamera,
     verts: torch.Tensor,         # [V,3] world (GL convention)
@@ -433,7 +434,9 @@ def rasterize(
 
     mask = slot >= 0
     if face_list.numel():
-        fid_safe = pixel_face_rows(face_list, tile_start, slot, tri.shape[0])
+        # a pixel without a winner gathers its tile's first face (masked out below)
+        pos = tile_start[:-1].long()[:, None, None] + slot.clamp(min=0).long()
+        fid_safe = face_list[pos.clamp(max=face_list.numel() - 1)]
         corner = take_rows(tri, fid_safe)                     # [T,t,t,3,3]
         nrm = take_rows(tri_n, fid_safe)
         w0 = 1.0 - w1 - w2

@@ -57,7 +57,8 @@ def test_launch_counters_reset():
     from followmyhold_tpu_torch.ops import _kernels
 
     assert set(_kernels.launch_counts()) == {"flash_attention_fwd", "flash_attention_bwd",
-                                             "raster_fwd", "raster_bwd", "scatter_rows_add"}
+                                             "raster_chunk_plan", "raster_fwd", "raster_bwd",
+                                             "scatter_rows_add"}
     _kernels.LAUNCH_COUNTS["raster_fwd"] += 3
     _kernels.reset_launch_counts()
     assert all(v == 0 for v in _kernels.launch_counts().values())

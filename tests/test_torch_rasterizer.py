@@ -262,35 +262,25 @@ def test_chunk_plan_of_a_binned_mesh():
     _check_plan(packed.tile_start)
 
 
-def test_plain_version_skips_pairs_beyond_the_reach():
-    """A pixel outside a face's bounding box padded by the reach (2 sigma +
-    1 px) has coverage 0 and is not inside: skipping those pairs, as the
-    kernels do, leaves the outputs as the full arithmetic gives them. Here a
-    sigma so large that every pair is in reach renders the same winners and
-    slots as the default, and the reach is 2 sigma + 1 px."""
-    meta = TR.RasterMeta(tiles_x=8, inv_sigma=1.0 / 0.7, znear=0.01, zfar=100.0)
+@pytest.mark.parametrize("seed", [3, 4])
+def test_pairs_beyond_the_reach_add_nothing(seed):
+    """What the kernels' cull rests on: a pixel outside a face's bounding box
+    padded by the reach (2 sigma + 1 px) gets coverage exactly 0 from that
+    face and is not inside it. The plain version evaluates every pair, and at
+    every pixel outside all the faces' padded boxes it leaves vis exactly 1
+    and no winner."""
+    v, f, n, m = _torch_args(*_irregular_mesh(n_tri=30, seed=seed))
+    packed = TR.bin_and_pack(TCAM, v, f, m, 0.7, 64)
+    meta = packed.meta
     assert meta.reach == pytest.approx(2 * 0.7 + 1.0) and isinstance(meta.reach, float)
-    v, f, n, m = _torch_args(*_irregular_mesh(n_tri=30, seed=3))
-    packed = TR.bin_and_pack(TCAM, v, f, m, 0.7, 64)
-    w1, w2, slot, vis = TR.raster_tiles_plain(packed.geom, packed.tile_start, packed.meta)
-    far = packed.meta._replace(inv_sigma=1.0 / 400.0)    # reach beyond the image
-    fw1, fw2, fslot, _ = TR.raster_tiles_plain(packed.geom, packed.tile_start, far)
-    assert torch.equal(slot, fslot) and torch.equal(w1, fw1) and torch.equal(w2, fw2)
-    assert (vis < 1).any() and ((vis >= 0) & (vis <= 1)).all()
-
-
-def test_pixel_face_rows_spread_the_pixels_without_a_winner():
-    """Winners gather their face; the others, whose values are masked out,
-    gather rows spread by pixel index, so no row collects them all."""
-    v, f, n, m = _torch_args(*_irregular_mesh(n_tri=6, seed=2))
-    packed = TR.bin_and_pack(TCAM, v, f, m, 0.7, 64)
-    _, _, slot, _ = TR.raster_tiles_plain(packed.geom, packed.tile_start, packed.meta)
-    rows = TR.pixel_face_rows(packed.face_list, packed.tile_start, slot, 6)
-    hit = slot >= 0
-    assert hit.any() and (~hit).any()
-    pos = packed.tile_start[:-1].long()[:, None, None] + slot.clamp(min=0).long()
-    assert torch.equal(rows[hit], packed.face_list[pos[hit]])
-    flat = torch.arange(slot.numel()).reshape(slot.shape)
-    assert torch.equal(rows[~hit], flat[~hit] % 6)
-    out = TR.rasterize(TCAM, v, f, n, m, faces_per_tile=64, device="cpu")
-    assert torch.equal(TR._untile(torch.where(hit, rows, -1), 8, 8), out.face_id)
+    _, _, slot, vis = TR.raster_tiles_plain(packed.geom, packed.tile_start, meta)
+    xy = packed.tri[..., :2].detach()
+    lo, hi = xy.amin(dim=1) - meta.reach, xy.amax(dim=1) + meta.reach     # [F,2]
+    u = torch.arange(SIZE, dtype=torch.float32)
+    in_x = (u[None, :] >= lo[:, :1]) & (u[None, :] <= hi[:, :1])          # [F,W]
+    in_y = (u[None, :] >= lo[:, 1:]) & (u[None, :] <= hi[:, 1:])          # [F,H]
+    far = ~(in_y[:, :, None] & in_x[:, None, :]).any(dim=0)               # [H,W]
+    vis, slot = TR._untile(vis, 8, 8), TR._untile(slot, 8, 8)
+    assert far.any() and (~far).any()
+    assert (vis[far] == 1.0).all() and (slot[far] == -1).all()
+    assert (vis[~far] < 1.0).any() and (slot[~far] >= 0).any()
