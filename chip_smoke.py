@@ -8,7 +8,8 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
 
 1. device   require CUDA; print the card's name and power limit.
 2. build    compile the CUDA kernels from followmyhold_tpu_torch/csrc with nvcc;
-            ptxas must report no spills and no serialised wgmma.
+            ptxas must report no spills and no serialised wgmma; build the native
+            host library (followmyhold_tpu_torch/native, g++).
 3. kernels  call every kernel's wrapper at the shapes the main path gives it
             and hold the result against its plain PyTorch version on the same
             inputs; time kernel, plain version and, for attention, PyTorch's
@@ -16,15 +17,22 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             Also the deterministic scatter-add behind every gather's gradient
             (ops/indexing.scatter_rows_add): no host sync, same bits in two
             calls, timed beside the atomic index_add_ it replaced.
-4. main     full-width Hunyuan3D-2 DiT + ShapeVAE with seeded random weights:
-            first two calls of GuidedSampler.run with a reduced config (every
-            phase, a few steps each) that must give the same bits; then
-            GuidedSampler.run with the default OptimizationConfig (20 CFG
-            steps; 200 hand-pose Adam steps, 100 object-phase and 9 x 50
-            joint-phase AdamW steps, each through the ShapeVAE decode and its
-            backward, marching tets, render and losses; scheduler advance)
-            and export_meshes at 64^3. The kernels' launch counts are set to
-            0 just before and read just after.
+4. main     the guidance stage on one image, as a user runs it: guidance/run.py's
+            run_hunyuan_w_guid on synthetic artifacts (a 512^2 crop, masks, a 384x512
+            MoGe grid mesh, the synthetic hand, keypoints), with the full-width
+            Hunyuan3D-2 DiT, ShapeVAE and DINOv2-G conditioner on seeded random
+            weights (the ShapeVAE's field shaped to an object-sized surface, see
+            _shape_field). First the conditioner with K1 is held against the plain
+            attention, and two calls of GuidedSampler.run with a reduced config
+            (every phase, a few steps each) must give the same bits. Then the stage
+            with the default OptimizationConfig: build_targets (the MoGe render),
+            the conditioner, GuidedSampler.run (20 CFG steps; 200 hand-pose Adam
+            steps, 100 object-phase and 9 x 50 joint-phase AdamW steps, each through
+            the ShapeVAE decode and its backward, marching tets, render and losses),
+            the 384^3 export (two-level decode on the card, compose and marching
+            tets on the host), floaters, degenerate faces, face reduction, and the
+            two PLYs. The kernels' launch counts are set to 0 just before the stage
+            and read just after; it prints s per image split by part.
 5. result   a `kernels` JSON line, the nvidia-smi line, and the `ok` JSON line.
 
 Tolerances, and why:
@@ -55,6 +63,10 @@ Tolerances, and why:
   pass uses atomics, so dk and dv must be bit-identical with and without the
   dq pass, and two calls on the same inputs must give the same bits. A ragged
   shape (N, M not multiples of 64) runs the masks.
+- the conditioner's tokens (bf16, 40 layers): ||with K1 - with the plain
+  attention||_F <= 2^-6 ||plain||_F. Each layer's attention differs by K1's
+  ~2.9e-3 and the differences compound through the residual stream; measured
+  7.8e-3 on one H100, and the limit is twice that.
 - rasterizer forward: winner slots must agree on all but 0.1 % of the pixels
   (the arithmetic is bit-identical by construction; the margin is for depth
   ties, and for the kernels' cull: they skip the (pixel, face) pairs beyond a
@@ -83,7 +95,9 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -145,6 +159,7 @@ def check_flash_attention(dev) -> dict:
         ("vae_self", 1, 16, 3072, 3072, 64),
         ("geo_cross", 4, 16, 8192, 3072, 64),
         ("dit_joint", 2, 16, 4442, 4442, 128),
+        ("cond_self", 1, 24, 1370, 1370, 64),  # DINOv2-G's 40 self-attentions (ragged)
         ("ragged", 1, 16, 3000, 2900, 64),   # the kv mask, zero-filled rows, rows past N
         ("d80", 1, 16, 1024, 1024, 80),      # head sizes padded to 128 by the wrapper
         ("d72", 1, 16, 1024, 1024, 72),
@@ -394,12 +409,13 @@ def _shifted(geom, px: float):
     return other
 
 
-def _check_raster_shape(R, tag, packed, gen) -> tuple:
+def _check_raster_shape(R, tag, packed, gen, plain_iters: int = 2) -> tuple:
     """K3 and K4 at one shape: each held against the plain version (forward)
     and autograd of it (backward), two calls giving the same bits, and the
     checked call run right after a call on other inputs of the same shapes,
     whose freed outputs the allocator hands to it, so that a pixel or a dgeom
-    column the kernels fail to write holds another value."""
+    column the kernels fail to write holds another value. The plain version is
+    timed over ``plain_iters`` calls after one warm-up (0: none)."""
     from followmyhold_tpu_torch.tools.time_raster_kernels import time_call
 
     geom, tile_start, meta = packed.geom, packed.tile_start, packed.meta
@@ -444,8 +460,10 @@ def _check_raster_shape(R, tag, packed, gen) -> tuple:
     bwd_t = time_call(lambda: R.raster_tiles_backward(
         geom, tile_start, got[2], got[3], gw1, gw2, gvis, meta))
     fwd_ms, bwd_ms = fwd_t["eager_ms"], bwd_t["eager_ms"]
+    warm = 1 if plain_iters > 1 else 0
     with torch.no_grad():
-        plain_fwd_ms = cuda_ms(lambda: R.raster_tiles_plain(geom, tile_start, meta), 1, 2)
+        plain_fwd_ms = cuda_ms(lambda: R.raster_tiles_plain(geom, tile_start, meta), warm,
+                               plain_iters)
 
     def plain_fwd_bwd():
         g = geom.clone().requires_grad_(True)
@@ -453,7 +471,7 @@ def _check_raster_shape(R, tag, packed, gen) -> tuple:
         torch.autograd.grad((o[0] * gw1).sum() + (o[1] * gw2).sum() + (o[3] * gvis).sum(), g)
 
     # the plain backward alone: forward + backward, less the forward timed above
-    plain_bwd_ms = cuda_ms(plain_fwd_bwd, 1, 2) - plain_fwd_ms
+    plain_bwd_ms = cuda_ms(plain_fwd_bwd, warm, plain_iters) - plain_fwd_ms
     pairs, near = _raster_pairs(geom, tile_start, meta)
     fwd_bound, fwd_by = _raster_bound(tile_start, near, _RASTER_FWD_OPS, 36, 16)
     bwd_bound, bwd_by = _raster_bound(tile_start, near, _RASTER_BWD_OPS, 72, 20)
@@ -665,21 +683,46 @@ def check_rasterizer(dev) -> list:
     fwd_o["bin_and_pack_ms"] = bin_ms
     say(f"raster object 512^2: projecting, binning and packing it (torch ops) {bin_ms:.3f} ms")
     scatter = check_scatter(dev, R, packed, got_h[2], sphere)
+    del packed_o
+
+    # --- the MoGe target mesh of build_targets: a 384x512 image grid ------- #
+    from followmyhold_tpu_torch.tools._scene import moge_grid_mesh
+
+    mv, mf = moge_grid_mesh(384, 512, 512, camera.fov_deg)
+    moge_v = torch.from_numpy(mv).to(dev)
+    moge_f = torch.from_numpy(mf).to(dev).long()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    packed_m = _tile_inputs(camera, moge_v, moge_f, 4096)
+    torch.cuda.synchronize()
+    bin_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    fwd_m, bwd_m, _, _ = _check_raster_shape(R, "moge", packed_m, gen, plain_iters=1)
+    bin_ms_m = cuda_ms(lambda: _tile_inputs(camera, moge_v, moge_f, 4096), 1, 3)
+    fwd_m.update(bin_and_pack_ms=bin_ms_m, bin_and_pack_transient_gib=bin_gib,
+                 verts=int(mv.shape[0]))
+    say(f"raster moge 512^2 ({mv.shape[0]} verts, {mf.shape[0]} faces, the densest tile "
+        f"{packed_m.bin_max} of 4096): projecting, binning and packing it (torch ops) "
+        f"{bin_ms_m:.3f} ms, {bin_gib:.2f} GiB transient")
+    del packed_m
 
     def entry(name, src, line, hand, obj, **extra):
         return dict(name=name, route="cuda", source=f"followmyhold_tpu_torch/csrc/{src}",
                     replaces=f"followmyhold_tpu/ops/rasterizer.py:{line}",
-                    max_abs_err=max(hand["max_abs_err"], obj["max_abs_err"]), ms=hand["ms"],
+                    max_abs_err=max(hand["max_abs_err"], obj["max_abs_err"],
+                                    extra.get("moge_mesh", {}).get("max_abs_err", 0.0)),
+                    ms=hand["ms"],
                     graph_ms=hand["graph_ms"], plain_ms=hand["plain_ms"],
                     bound_ms=hand["bound_ms"], bound_by=hand["bound_by"], library_ms=None,
                     chunk=R.RASTER_CHUNK, hand_mesh=hand, object_mesh=obj, **extra)
 
-    fwd = entry("raster_fwd", "raster_fwd.cu", 506, fwd_h, fwd_o,
+    fwd = entry("raster_fwd", "raster_fwd.cu", 506, fwd_h, fwd_o, moge_mesh=fwd_m,
                 pixel_face_pairs=fwd_h["pixel_face_pairs"],
                 pairs_after_cull=fwd_h["pairs_after_cull"],
                 bound_ms_all_pairs=fwd_h["bound_ms_all_pairs"],
-                slot_mismatch=max(fwd_h["slot_mismatch"], fwd_o["slot_mismatch"]))
-    bwd = entry("raster_bwd", "raster_bwd.cu", 530, bwd_h, bwd_o,
+                slot_mismatch=max(fwd_h["slot_mismatch"], fwd_o["slot_mismatch"],
+                                  fwd_m["slot_mismatch"]))
+    bwd = entry("raster_bwd", "raster_bwd.cu", 530, bwd_h, bwd_o, moge_mesh=bwd_m,
                 pixel_face_pairs=bwd_h["pixel_face_pairs"],
                 pairs_after_cull=bwd_h["pairs_after_cull"],
                 bound_ms_all_pairs=bwd_h["bound_ms_all_pairs"], vertex_grad_err=err_gv)
@@ -755,60 +798,259 @@ def check_two_runs(dev, dit, vae, camera, targets, cond, uncond) -> None:
         f"{secs[0]:.2f} s and {secs[1]:.2f} s")
 
 
-def run_main_path(dev) -> dict:
-    """The default OptimizationConfig end to end: 20 CFG steps; at step 9 the
-    hand phase (200 Adam steps); at step 10 the object phase (100 AdamW steps
-    through step_final -> the two-level ShapeVAE decode -> marching tets ->
-    render); at steps 11-19 the joint phase (50 AdamW steps each); then the
-    export at 64^3.
+# the conditioner's tokens with K1 against the same forward with the plain attention:
+# measured 7.8e-3 relative (one H100 80GB HBM3 at 700 W: 40 layers of bf16
+# attention, K1's per-call 2.9e-3 compounding); the limit is twice that
+_COND_REL_LIMIT = 2.0 ** -6
+# the shaped random-weight field (see _shape_field): the share of the box inside the
+# object at the calibration latents (5-11 % over the in-loop decodes of steps 8-19,
+# about the object mask's size on the image), and the factor on the geo decoder's
+# attention output
+_INSIDE_SHARE = 0.05
+_ATTENTION_SCALE = 0.1
+IMAGE_ID = "000001"
 
-    With random weights the decoded SDF is a noise field, so a falling object
-    loss is not required (the object cannot fit the targets' silhouette); the
-    run must instead finish with finite loss curves of full length, an object
-    pose and a noise prediction that the optimizers moved, and every kernel
-    launched as often as the phases call it."""
-    from followmyhold_tpu_torch.configs.guidance import OptimizationConfig, guidance_mesh_caps
+
+def _shape_field(dev, dit, vae, cond_main, uncond_main) -> dict:
+    """Give the random-weight ShapeVAE a field with an object-sized surface.
+
+    Raw random weights make the geo query's high Fourier frequencies a noise
+    field: its surface crosses almost every cell, and the 384^3 export would
+    emit ~10^8 faces, which no trained model produces. So the query embedding
+    keeps only its lowest frequency (x, sin x, cos x per axis; the other
+    columns of query_in are zeroed); the attention's output projection is
+    scaled by _ATTENTION_SCALE, so that the latents move the surface without
+    moving the field's level past it (at full scale the level moved by about
+    twice the field's 5-95 % spread between random and denoised latents, and
+    the object phase saw no surface); and the logit bias is set so that
+    _INSIDE_SHARE of a 33^3 grid over the box is inside at the latents of an
+    unguided 20-step run from the stage's own initial noise and condition.
+    All of it is seeded, so every run of the script gets the same weights."""
+    from followmyhold_tpu_torch.diffusion.pipeline import denoise_latents
+    from followmyhold_tpu_torch.models.hunyuan import vae_query_logits
+    from followmyhold_tpu_torch.ops.grid import generate_dense_grid_points
+    from followmyhold_tpu_torch.utils.prng import SEED_GUIDANCE, stage_generator
+
+    c = vae.cfg
+    per = 2 * c.fourier_freqs + 1
+    keep = torch.zeros(3 * per, dtype=torch.bool, device=dev)
+    keep[[a * per + j for a in range(3) for j in (0, 1, 1 + c.fourier_freqs)]] = True
+    shape = (1, c.num_latents, c.embed_dim)
+    noise = torch.randn(shape, generator=stage_generator(SEED_GUIDANCE, "guidance", IMAGE_ID, dev),
+                        device=dev)
+    lat = denoise_latents(dit, cond_main, uncond_main, shape[1:], num_inference_steps=20,
+                          guidance_scale=5.0, initial_noise=noise, device=dev)
+    xyz, _, _ = generate_dense_grid_points([-1.1] * 3, [1.1] * 3, 32, device=dev)
+    with torch.no_grad():
+        vae.geo.query_in.weight[:, ~keep] = 0.0
+        vae.geo.proj.weight.mul_(_ATTENTION_SCALE)
+        vae.geo.proj.bias.mul_(_ATTENTION_SCALE)
+        g = vae_query_logits(vae, lat, xyz[None])[0].float()
+        level = torch.quantile(g, 1.0 - _INSIDE_SHARE).item()
+        vae.geo.logit.bias -= level
+    return dict(logit_shift=-level, spread=(g.max() - g.min()).item())
+
+
+def _timed(fn, record: dict, key: str):
+    """fn, with its synchronized wall time added to record[key]."""
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        record[key] = record.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    return wrapped
+
+
+def run_stage(dev) -> dict:
+    """The guidance stage on one image, as a user runs it: guidance/run.py's
+    run_hunyuan_w_guid on synthetic artifacts written to a temporary directory
+    (a 512^2 RGBA crop, hand and object masks, a 384x512 MoGe grid mesh with
+    fov.json, T_h2m, the synthetic hand as the aligned MANO mesh, the HaMeR
+    keypoints and J_regressor_hamer.npy), with the full-width DiT, ShapeVAE and
+    DINOv2-G and the default OptimizationConfig: build_targets (the MoGe mesh
+    through K3), the conditioner (K1 at [1,24,1370,64]), GuidedSampler.run (20
+    CFG steps; 200 hand, 100 object and 9 x 50 joint iterations), the 384^3
+    export (two-level decode, host compose and marching tets) and the
+    post-processing, then the two PLYs.
+
+    The stage's functions are wrapped here, not changed, to time each part
+    and keep what the checks read (the GuidanceResult, the export's refine
+    ids). With random weights a falling object loss is not required; the run
+    must finish with finite loss curves of full length, an object pose and a
+    noise prediction that the optimizers moved, both PLYs written, and every
+    kernel launched as often as the stage calls it."""
+    import tempfile
+
+    from PIL import Image
+
+    from followmyhold_tpu_torch.configs.guidance import OptimizationConfig
+    from followmyhold_tpu_torch.diffusion import guidance
     from followmyhold_tpu_torch.diffusion.guidance import GuidedSampler
-    from followmyhold_tpu_torch.geometry.hunyuan import build_models
-    from followmyhold_tpu_torch.models.hunyuan import DIT_FULL, VAE_FULL
+    from followmyhold_tpu_torch.geometry.hunyuan import build_models, encode_condition
+    from followmyhold_tpu_torch.guidance import run as stage
+    from followmyhold_tpu_torch.models import hunyuan, vit
+    from followmyhold_tpu_torch.models.hunyuan import (
+        COND_FULL,
+        DIT_FULL,
+        VAE_FULL,
+        refine_point_ids_host,
+    )
     from followmyhold_tpu_torch.ops import _kernels
-    from followmyhold_tpu_torch.tools._scene import hand_scene
+    from followmyhold_tpu_torch.ops.attention import attention_plain
+    from followmyhold_tpu_torch.ops.camera import GuidanceCamera
+    from followmyhold_tpu_torch.tools._scene import write_stage_inputs
+    from followmyhold_tpu_torch.utils.mesh_io import load_mesh
 
-    size = 512
     t0 = time.perf_counter()
-    dit, vae = build_models(DIT_FULL, VAE_FULL, seed=0, device=dev)
+    dit, vae, cond = build_models(DIT_FULL, VAE_FULL, COND_FULL, seed=0, device=dev)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for m in (dit, vae) for p in m.parameters())
-    say(f"main: built DiT + ShapeVAE at full width, {n_params / 1e9:.2f} B parameters, "
-        f"{time.perf_counter() - t0:.1f} s")
+    n_params = {name: sum(p.numel() for p in m.parameters()) / 1e9
+                for name, m in (("dit", dit), ("vae", vae), ("conditioner", cond))}
+    say(f"main: built DiT + ShapeVAE + DINOv2-G at full width ({n_params}, billions of "
+        f"parameters) in {time.perf_counter() - t0:.1f} s")
 
-    # synthetic targets: the hand a third of the image wide, as in a hand-object crop
-    _, _, camera, targets = hand_scene(dev, size)
-    # random condition tokens stand in for the image conditioner (not ported yet)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    cond = torch.randn((1, 1370, DIT_FULL.context_dim), generator=gen, device=dev)
-    uncond = torch.zeros_like(cond)
+    root = tempfile.mkdtemp(prefix="fmh_stage_")
+    d = write_stage_inputs(root, image_id=IMAGE_ID, size=512, moge_grid=(384, 512))
+    crop = os.path.join(d["cropped_obj_img_dir"], f"{IMAGE_ID}_cropped_inpainted.png")
+    rgba = np.asarray(Image.open(crop).convert("RGBA"))
 
-    check_two_runs(dev, dit, vae, camera, targets, cond, uncond)
+    # the conditioner with K1 against the same forward with the plain attention
+    tokens, uncond = encode_condition(cond, rgba, device=dev)
+    with_kernel = vit.multi_head_attention
+    vit.multi_head_attention = lambda q, k, v, device=None: attention_plain(
+        q, k, v, scale=1.0 / math.sqrt(q.shape[-1]))
+    try:
+        plain_tokens, _ = encode_condition(cond, rgba, device=dev)
+    finally:
+        vit.multi_head_attention = with_kernel
+    cond_rel = _rel_err(tokens, plain_tokens)
+    if not (math.isfinite(cond_rel) and cond_rel <= _COND_REL_LIMIT):
+        fail(f"conditioner tokens with K1 differ from the plain attention's by {cond_rel} "
+             f"relative (limit {_COND_REL_LIMIT})")
+    say(f"main: conditioner tokens {list(tokens.shape)} with K1 against the plain attention: "
+        f"relative {cond_rel:.2e} (limit {_COND_REL_LIMIT:.2e})")
+    field = _shape_field(dev, dit, vae, tokens, uncond)
+    say(f"main: shaped the random-weight field (lowest Fourier frequency; logit shift "
+        f"{field['logit_shift']:.4f}, spread {field['spread']:.4f} over the box)")
 
+    # the two reduced runs on the stage's own targets
+    camera = GuidanceCamera(height=512, width=512, fov_deg=60.0)
+    j_reg = np.load(os.path.join(d["hamer_out_dir"], "J_regressor_hamer.npy"))
+    args = dict(
+        cropped_obj_img_path=crop, fovx=60.0,
+        hamer_for_guid_path=os.path.join(d["hamer_out_dir"], f"{IMAGE_ID}_kps_for_guidance.npy"),
+        aligned_mano_mesh_path=os.path.join(d["aligned_mano_dir"],
+                                            f"{IMAGE_ID}_hamer_aligned_mano.ply"),
+        cropped_obj_mask_path=os.path.join(d["mask_dir"], f"{IMAGE_ID}_cropped_obj_mask.png"),
+        cropped_hand_mask_path=os.path.join(d["mask_dir"], f"{IMAGE_ID}_cropped_hand_mask.png"),
+        moge_mesh_path=os.path.join(d["moge_out_dir"], f"{IMAGE_ID}_cropped_hoi", "mesh.ply"),
+        T_h2m_path=os.path.join(d["h2m_rt_dir"], f"{IMAGE_ID}_hoi_mesh.npy"),
+        hunyuan_hoi_mesh_path=os.path.join(d["hunyuan_hoi_mesh_dir"], f"{IMAGE_ID}_hoi_mesh.ply"),
+        save_path_obj=os.path.join(d["guidance_out_dir"], f"{IMAGE_ID}_obj.ply"),
+        save_path_hand=os.path.join(d["guidance_out_dir"], f"{IMAGE_ID}_hand.ply"))
+    targets = stage.build_targets(
+        camera, args["aligned_mano_mesh_path"], args["T_h2m_path"], args["moge_mesh_path"],
+        stage._load_mask(args["cropped_hand_mask_path"]),
+        stage._load_mask(args["cropped_obj_mask_path"]), args["hamer_for_guid_path"], j_reg,
+        device=dev)
+    check_two_runs(dev, dit, vae, camera, targets, tokens, uncond)
+    del targets
+
+    # ---- the main path: one image through the stage ---------------------- #
+    secs, kept = {}, {}
+    originals = {name: getattr(stage, name) for name in (
+        "build_targets", "encode_condition", "remove_floaters", "remove_degenerate_faces",
+        "reduce_faces")}
+    run_orig, export_orig = GuidedSampler.run, GuidedSampler.export_meshes
+    decode_orig = hunyuan.vae_query_logits_hierarchical
+    compose_orig = hunyuan.compose_hierarchical_grid
+    extract_orig = guidance.marching_tets_host
+
+    def encode(*a, **k):
+        before = _kernels.LAUNCH_COUNTS["flash_attention_fwd"]
+        out = _timed(originals["encode_condition"], secs, "conditioner")(*a, **k)
+        kept["conditioner_k1"] = _kernels.LAUNCH_COUNTS["flash_attention_fwd"] - before
+        kept["cond"] = torch.cat(out, dim=0)
+        return out
+
+    def sampler_run(self, *a, **k):
+        kept["sampler"] = self
+        kept["result"] = _timed(run_orig, secs, "sampler")(self, *a, **k)
+        return kept["result"]
+
+    def export(self, *a, **k):
+        out = _timed(export_orig, secs, "export")(self, *a, **k)
+        kept["faces_exported"] = int(out[0].num_faces)
+        return out
+
+    def decode(*a, **k):
+        out = _timed(decode_orig, secs, "export_decode")(*a, **k)
+        kept["export"] = dict(g_c=out[0].cpu().numpy(), pt_ids=out[1].cpu().numpy(),
+                              n_selected=out[3], n_points=out[4])
+        return out
+
+    def counted(name):
+        def fn(verts, faces, *a, **k):
+            out = _timed(originals[name], secs, name)(verts, faces, *a, **k)
+            kept[f"faces_after_{name}"] = len(out[1])
+            return out
+        return fn
+
+    def reduce(verts, faces, *a, **k):
+        kept["faces_before_reduce"] = len(faces)
+        out = _timed(originals["reduce_faces"], secs, "reduce_faces")(verts, faces, *a, **k)
+        kept["faces_after_reduce"] = len(out[1])
+        return out
+
+    stage.build_targets = _timed(originals["build_targets"], secs, "build_targets")
+    stage.encode_condition = encode
+    stage.remove_floaters = counted("remove_floaters")
+    stage.remove_degenerate_faces = counted("remove_degenerate_faces")
+    stage.reduce_faces = reduce
+    GuidedSampler.run, GuidedSampler.export_meshes = sampler_run, export
+    hunyuan.vae_query_logits_hierarchical = decode
+    hunyuan.compose_hierarchical_grid = _timed(compose_orig, secs, "export_compose")
+    guidance.marching_tets_host = _timed(extract_orig, secs, "host_extraction")
     config = OptimizationConfig()
-    sampler = GuidedSampler(dit=dit, vae=vae, camera=camera, config=config,
-                            **guidance_mesh_caps())
-
-    torch.cuda.reset_peak_memory_stats()
-    _kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    result = sampler.run(cond, uncond, targets, (VAE_FULL.num_latents, VAE_FULL.embed_dim),
-                         generator=torch.Generator(device=dev).manual_seed(2), device=dev)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    obj_mesh, hand_verts = sampler.export_meshes(result, targets, octree_resolution=64,
-                                                 device=dev)
-    torch.cuda.synchronize()
-    export_s = time.perf_counter() - t0
-    launches = _kernels.launch_counts()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        obj_out, hand_out = stage.run_hunyuan_w_guid(
+            **args, config=config, models=(dit, vae, cond), j_regressor=j_reg, device=dev)
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        launches = _kernels.launch_counts()
+    finally:
+        for name, fn in originals.items():
+            setattr(stage, name, fn)
+        GuidedSampler.run, GuidedSampler.export_meshes = run_orig, export_orig
+        hunyuan.vae_query_logits_hierarchical = decode_orig
+        hunyuan.compose_hierarchical_grid = compose_orig
+        guidance.marching_tets_host = extract_orig
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    result, sampler, ex = kept["result"], kept["sampler"], kept["export"]
+
+    # ---- what the stage reports ------------------------------------------ #
+    post_s = secs["remove_floaters"] + secs["remove_degenerate_faces"] + secs["reduce_faces"]
+    write_s = stage_s - sum(secs[k] for k in ("build_targets", "conditioner", "sampler",
+                                               "export")) - post_s
+    export_parts = ("export_decode", "export_compose", "host_extraction")
+    split = dict(conditioner=secs["conditioner"], build_targets=secs["build_targets"],
+                 sampler=secs["sampler"], **{k: secs[k] for k in export_parts},
+                 export_rest=secs["export"] - sum(secs[k] for k in export_parts),
+                 postprocess=post_s, reading_and_writing=write_s)
+    say(f"main: stage {stage_s:.2f} s per image: " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in split.items()))
+    say(f"main: postprocess: floaters {secs['remove_floaters']:.3f} s, degenerate faces "
+        f"{secs['remove_degenerate_faces']:.3f} s, reduce_faces {secs['reduce_faces']:.3f} s; "
+        f"faces: {kept['faces_exported']} exported, {kept['faces_after_remove_floaters']} "
+        f"after the floaters, {kept['faces_before_reduce']} after the degenerate faces (before "
+        f"reduce_faces), {kept['faces_after_reduce']} after reduce_faces; export: "
+        f"{ex['n_selected']} surface cells, {ex['n_points']} refine points")
 
     n_steps = config.num_inference_steps
     n_hand, n_obj = config.optimization_steps_hand, config.optimization_steps_scale
@@ -817,11 +1059,11 @@ def run_main_path(dev) -> dict:
     n_blocks = DIT_FULL.depth_double + DIT_FULL.depth_single
     sec = result.seconds
     dit_s = sec["dit_steps"]
-    say(f"main: run {run_s:.2f} s (DiT step median {float(np.median(dit_s)):.4f} s, first "
-        f"{dit_s[0]:.4f} s; hand phase {sec['hand']:.2f} s = "
-        f"{sec['hand'] / n_hand * 1e3:.2f} ms/iteration; object phase {sec['obj']:.2f} s = "
-        f"{sec['obj'] / n_obj * 1e3:.2f} ms/iteration; joint phases {sec['joint']:.2f} s = "
-        f"{sec['joint'] / n_joint * 1e3:.2f} ms/iteration), export {export_s:.2f} s, "
+    say(f"main: sampler {secs['sampler']:.2f} s (DiT step median "
+        f"{float(np.median(dit_s)):.4f} s, first {dit_s[0]:.4f} s; hand phase "
+        f"{sec['hand']:.2f} s = {sec['hand'] / n_hand * 1e3:.2f} ms/iteration; object phase "
+        f"{sec['obj']:.2f} s = {sec['obj'] / n_obj * 1e3:.2f} ms/iteration; joint phases "
+        f"{sec['joint']:.2f} s = {sec['joint'] / n_joint * 1e3:.2f} ms/iteration), "
         f"peak memory {peak_gb:.2f} GiB")
 
     curves = {tag: c.float().cpu() for tag, c in result.losses.items()}
@@ -831,12 +1073,29 @@ def run_main_path(dev) -> dict:
     for tag, c in curves.items():
         say(f"main: {tag} loss first {c[0].item():.5f} last {c[-1].item():.5f} "
             f"min {c.min().item():.5f}")
-    nv, nf = obj_mesh.num_verts, obj_mesh.num_faces
-    moved = _noise_moved(sampler, result, torch.cat([cond, uncond]), n_steps)
+    moved = _noise_moved(sampler, result, kept["cond"], n_steps)
     say(f"main: object pose scale {result.obj.scale.tolist()} trans {result.obj.trans.tolist()} "
         f"quat {result.obj.quat.tolist()}; the joint phase moved the noise prediction by "
-        f"{moved:.4f}; object mesh {nv} verts {nf} faces; launches {launches}")
+        f"{moved:.4f}; launches {launches} (the conditioner's K1 {kept['conditioner_k1']})")
 
+    # ---- checks -------------------------------------------------------------- #
+    for path in (args["save_path_obj"], args["save_path_hand"]):
+        if not (os.path.exists(path) and os.path.getmtime(path) >= t0 - 1.0):
+            fail(f"{path} was not written by this run")
+    obj_ply, hand_ply = load_mesh(args["save_path_obj"]), load_mesh(args["save_path_hand"])
+    if not (obj_ply.num_faces > 0 and np.isfinite(obj_ply.vertices).all()
+            and hand_ply.num_vertices == 778 and np.isfinite(hand_ply.vertices).all()):
+        fail(f"the PLYs are empty or not finite: object {obj_ply.num_vertices} verts "
+             f"{obj_ply.num_faces} faces, hand {hand_ply.num_vertices} verts")
+    if obj_out is None or len(obj_out[1]) != obj_ply.num_faces:
+        fail("the stage's object mesh and the PLY it wrote differ")
+    say(f"main: wrote {IMAGE_ID}_obj.ply ({obj_ply.num_vertices} verts, {obj_ply.num_faces} "
+        f"faces) and {IMAGE_ID}_hand.ply ({hand_ply.num_vertices} verts)")
+    host_ids = refine_point_ids_host(ex["g_c"], config.final_octree_resolution)
+    if not np.array_equal(host_ids, ex["pt_ids"]):
+        fail(f"the export's refine ids differ between the device ({ex['pt_ids'].size}) and "
+             f"the host twin ({host_ids.size})")
+    say(f"main: the export's {host_ids.size} refine ids are the same on the device and the host")
     if sorted(curves) != sorted(want_len):
         fail(f"loss curves of phases {sorted(curves)}, expected {sorted(want_len)}")
     for tag, c in curves.items():
@@ -846,7 +1105,7 @@ def run_main_path(dev) -> dict:
         fail(f"hand loss did not decrease: {curves['hand'][0].item()} -> "
              f"{curves['hand'][-1].item()}")
     if not all(torch.isfinite(x).all() for x in (result.latents, result.noise_pred,
-                                                  *result.hand, *result.obj, hand_verts)):
+                                                  *result.hand, *result.obj)):
         fail("non-finite latents, noise prediction or poses")
     if torch.allclose(result.obj.quat.cpu(), torch.tensor([1.0, 0.0, 0.0, 0.0])) or \
             torch.allclose(result.obj.trans.cpu(), torch.zeros(3)):
@@ -855,29 +1114,31 @@ def run_main_path(dev) -> dict:
         fail(f"the joint phase did not move the noise prediction ({moved})")
     if tuple(result.latents.shape) != (1, VAE_FULL.num_latents, VAE_FULL.embed_dim):
         fail(f"latents have shape {tuple(result.latents.shape)}")
-    if nv <= 0 or nf <= 0 or not torch.isfinite(obj_mesh.verts).all():
-        fail(f"exported object mesh is empty or not finite ({nv} verts, {nf} faces)")
-    if launches["flash_attention_fwd"] < n_blocks * n_steps:
+    if kept["conditioner_k1"] < COND_FULL.depth:
+        fail(f"the conditioner launched K1 {kept['conditioner_k1']} times, expected at least "
+             f"{COND_FULL.depth}")
+    if launches["flash_attention_fwd"] < n_blocks * n_steps + COND_FULL.depth:
         fail(f"flash attention launched {launches['flash_attention_fwd']} times, expected at "
-             f"least {n_blocks * n_steps}")
+             f"least {n_blocks * n_steps + COND_FULL.depth}")
     # one backward per ShapeVAE self-attention block in every object/joint iteration
     want_bwd = VAE_FULL.depth * (n_obj + n_joint)
     if launches["flash_attention_bwd"] < want_bwd:
         fail(f"flash attention backward launched {launches['flash_attention_bwd']} times, "
              f"expected at least {want_bwd}")
     # one render per hand and object iteration, two (hand alone, then the scene)
-    # per joint iteration
-    want_raster = n_hand + n_obj + 2 * n_joint
-    if launches["raster_fwd"] < want_raster or launches["raster_bwd"] < want_raster:
+    # per joint iteration, and build_targets' MoGe render
+    want_raster = n_hand + n_obj + 2 * n_joint + 1
+    if launches["raster_fwd"] < want_raster or launches["raster_bwd"] < want_raster - 1:
         fail(f"rasterizer launched {launches['raster_fwd']} / {launches['raster_bwd']} times, "
-             f"expected at least {want_raster} each")
+             f"expected at least {want_raster} / {want_raster - 1}")
     if launches["raster_chunk_plan"] < want_raster:
         fail(f"the raster chunk plan launched {launches['raster_chunk_plan']} times, expected "
              f"at least {want_raster}")
     # the backward of every render scatters the two per-pixel gathers (corners, normals)
-    if launches["scatter_rows_add"] < 2 * want_raster:
+    if launches["scatter_rows_add"] < 2 * (want_raster - 1):
         fail(f"scatter_rows_add launched {launches['scatter_rows_add']} times, expected at "
-             f"least {2 * want_raster}")
+             f"least {2 * (want_raster - 1)}")
+    shutil.rmtree(root, ignore_errors=True)
     return launches
 
 
@@ -902,6 +1163,12 @@ def main() -> None:
     _, reports = _kernels.build_library(verbose=True)
     _kernels.load_library()
     say(f"build: kernels compiled and loaded in {time.perf_counter() - t0:.1f} s")
+    from followmyhold_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    say(f"build: the native host library (g++) built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
     # a spill or a serialised wgmma costs the kernels their design's speed
     for src, report in reports.items():
         if "serialized" in report or re.search(r"[1-9]\d* bytes spill", report):
@@ -911,7 +1178,7 @@ def main() -> None:
                *check_rasterizer(dev)]
     launches = {k["name"]: 0 for k in kernels}
     if not args.kernels_only:
-        launches = run_main_path(dev)
+        launches = run_stage(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

@@ -3,8 +3,7 @@
 The port's own copy of followmyhold_tpu/configs/guidance.py (the port imports
 nothing of that package): same step counts, per-group learning rates, phase
 boundaries and loss toggles as the original pipeline's OptimizationConfig
-(src/foho/configs/guid_config.py:6-32). ``guidance_mesh_caps`` holds the
-full-size static capacities of followmyhold_tpu/configs/profiles.py.
+(src/foho/configs/guid_config.py:6-32).
 """
 
 from __future__ import annotations
@@ -67,8 +66,8 @@ class OptimizationConfig:
 
 
 def guidance_mesh_caps() -> dict:
-    """Full-size capacities of the guided sampler. ``raster_faces_per_tile`` is
-    the most faces one pixel tile keeps; a tile's list is packed, so capacity
-    above the true count costs nothing."""
-    return dict(max_verts=32768, max_faces=65536, vae_chunk=8192,
-                raster_faces_per_tile=24576)
+    """The sampler's static capacities for the active profile; they live in
+    ``configs/profiles.py`` and keep this name too."""
+    from followmyhold_tpu_torch.configs.profiles import guidance_mesh_caps as caps
+
+    return caps()

@@ -26,7 +26,12 @@ object, 1 cm margin) and, near the end, a gradient-free intersection count:
 the object's occupancy is read from the decoded SDF grid by trilinear lookup,
 the hand's by winding number against the MANO mesh.
 
-Not ported: ``run_batch``, the debug dumps and the 384^3 export.
+``export_meshes`` decodes the final latents: up to 256^3 densely with the
+device's marching tets, above it (the stage's 384^3) with the two-level
+decode (``models.hunyuan.hierarchical_export_logits``) and the host's exact
+marching tets (``ops.surface.marching_tets_host``). ``run`` takes a
+``utils.debug.DebugDir`` for the reference's loss lines, render snapshots and
+mesh dumps. Not ported: ``run_batch``.
 
 Where the reference folds each optimizer loop into one compiled scan, this is a
 Python loop around ``torch.optim.Adam`` / ``torch.optim.AdamW`` (one parameter
@@ -54,6 +59,7 @@ from followmyhold_tpu_torch.diffusion.scheduler import (
 from followmyhold_tpu_torch.models.hunyuan import (
     HunyuanDiT,
     ShapeVAE,
+    hierarchical_export_logits,
     vae_query_logits,
     vae_query_logits_hier_grid,
 )
@@ -76,6 +82,7 @@ from followmyhold_tpu_torch.ops.sdf import winding_number
 from followmyhold_tpu_torch.ops.surface import (
     PaddedMesh,
     marching_tets,
+    marching_tets_host,
     mesh_edges,
     vertex_normals,
 )
@@ -287,10 +294,21 @@ def _optimize(opt: torch.optim.Optimizer, steps: int, loss_step, dev: torch.devi
     return curve, renders
 
 
-def _indicators(out, n_sel: Optional[int] = None) -> dict:
+_SNAPSHOT_STRIDE = 8   # 512^2 -> 64^2 render snapshots for the debug dumps
+# indicator channels that are scalars, not render snapshots
+_DIAG_CHANNELS = ("hier_cells", "raster_bins", "raster_cap")
+
+
+def _indicators(out, n_sel: Optional[int] = None, renders=None) -> dict:
+    """The capacity indicators of one iteration and, when ``renders`` =
+    (normal, disparity) is given (a debug run), their downsampled copies."""
     ind = dict(raster_bins=out.bin_max, raster_cap=out.bin_capacity)
     if n_sel is not None:
         ind["hier_cells"] = n_sel
+    if renders is not None:
+        s = _SNAPSHOT_STRIDE
+        ind["normal"] = renders[0][::s, ::s].detach()
+        ind["disp"] = renders[1][::s, ::s].detach()
     return ind
 
 
@@ -333,6 +351,9 @@ class GuidedSampler:
     vae_remat: str = "none"
     # checkpoint scheduler_config shift, applied to the linspace(0,1) sigmas
     scheduler_shift: float = 1.0
+    # export_meshes' resolution when the call names none (None: the config's
+    # octree_resolution); the stage passes config.final_octree_resolution
+    final_octree_resolution: Optional[int] = None
 
     # ------------------------------------------------------------------ #
 
@@ -383,7 +404,7 @@ class GuidedSampler:
 
     # phase 1: hand only ------------------------------------------------ #
 
-    def _hand_phase(self, hand: PoseParams, targets: GuidanceTargets
+    def _hand_phase(self, hand: PoseParams, targets: GuidanceTargets, snapshot: bool = False
                     ) -> Tuple[PoseParams, torch.Tensor, Dict[str, list]]:
         cfg = self.config
         lrs = cfg.phase1_hand_lrs
@@ -397,7 +418,7 @@ class GuidedSampler:
 
         def loss_step():
             verts = _transform_hand(targets, PoseParams(scale, trans, quat))
-            terms, (_, _, out) = _hand_render_losses(
+            terms, (n01, disp01, out) = _hand_render_losses(
                 verts, targets, self.camera, self._hand_raster_kw(), with_sil=True)
             total = (
                 1e-2 * terms["kps2d"]
@@ -406,7 +427,7 @@ class GuidedSampler:
                 + 1.0 * terms["sil"]
                 + 1e-2 * torch.mean(trans ** 2)
             )
-            return total, _indicators(out)
+            return total, _indicators(out, renders=(n01, disp01) if snapshot else None)
 
         curve, renders = _optimize(opt, cfg.optimization_steps_hand, loss_step, scale.device)
         return PoseParams(scale.detach(), trans.detach(), quat.detach()), curve, renders
@@ -414,7 +435,8 @@ class GuidedSampler:
     # phase 1.5: object transform + noise -------------------------------- #
 
     def _obj_phase(self, obj: PoseParams, noise_pred: torch.Tensor, latents: torch.Tensor,
-                   targets: GuidanceTargets, sched: FlowMatchSchedule, step_i: int):
+                   targets: GuidanceTargets, sched: FlowMatchSchedule, step_i: int,
+                   snapshot: bool = False):
         cfg = self.config
         lrs = cfg.obj_2half_lrs
         dev = latents.device
@@ -445,7 +467,7 @@ class GuidedSampler:
                 + 1e-3 * verts_reg_loss(tmesh.verts, tmesh.vert_mask)
                 + 1e-2 * torch.mean(trans ** 2)
             )
-            return total, _indicators(out, n_sel)
+            return total, _indicators(out, n_sel, (n01, disp01) if snapshot else None)
 
         curve, renders = _optimize(opt, cfg.optimization_steps_scale, loss_step, dev)
         return (PoseParams(scale.detach(), trans.detach(), quat.detach()), noise.detach(),
@@ -455,7 +477,8 @@ class GuidedSampler:
 
     def _joint_phase(self, hand: PoseParams, obj: PoseParams, noise_pred: torch.Tensor,
                      latents: torch.Tensor, targets: GuidanceTargets,
-                     sched: FlowMatchSchedule, step_i: int, near_end: bool):
+                     sched: FlowMatchSchedule, step_i: int, near_end: bool,
+                     snapshot: bool = False):
         cfg = self.config
         h_lrs, o_lrs = cfg.phase2_hand_lrs, cfg.obj_lrs
         dev = latents.device
@@ -532,7 +555,7 @@ class GuidedSampler:
                 + 1e-3 * torch.mean(op.trans ** 2)
                 + 1e-3 * hand_loss
             )
-            return total, _indicators(out, n_sel)
+            return total, _indicators(out, n_sel, (n01, disp01) if snapshot else None)
 
         curve, renders = _optimize(opt, cfg.optimization_steps_joint, loss_step, dev)
         return (PoseParams(*(x.detach() for x in hp)), PoseParams(*(x.detach() for x in op)),
@@ -549,10 +572,15 @@ class GuidedSampler:
         initial_noise: Optional[torch.Tensor] = None,   # [1, *latent_shape]
         generator: Optional[torch.Generator] = None,
         device: DeviceLike = "cuda",
+        debug=None,                  # Optional[utils.debug.DebugDir]
     ) -> GuidanceResult:
         """The guided sampling loop. The initial latents are ``initial_noise``
         or drawn from ``generator``; the models must already lie on
-        ``device``."""
+        ``device``. With an enabled ``debug`` directory, each phase writes its
+        loss every 10 iterations and its last, render snapshots every 10
+        iterations, and the joint phases and step 14 the reference's render
+        and mesh dumps."""
+        dumps = debug is not None and debug.enabled
         cfg = self.config
         dev = resolve_device(device)
         n = cfg.num_inference_steps
@@ -584,15 +612,16 @@ class GuidedSampler:
 
             t0 = time.perf_counter()
             if i == cfg.handopt_start_step:
-                hand, curve, renders = self._hand_phase(hand, targets)
+                hand, curve, renders = self._hand_phase(hand, targets, snapshot=dumps)
                 tag, phase = "hand", "hand"
             elif i == cfg.handopt_start_step + 1:
                 obj, noise_pred, curve, renders = self._obj_phase(
-                    obj, noise_pred, latents, targets, sched, i)
+                    obj, noise_pred, latents, targets, sched, i, snapshot=dumps)
                 tag, phase = "obj", "obj"
             elif i >= cfg.handopt_start_step + 2:
                 hand, obj, noise_pred, curve, renders = self._joint_phase(
-                    hand, obj, noise_pred, latents, targets, sched, i, near_end=i >= n - 3)
+                    hand, obj, noise_pred, latents, targets, sched, i, near_end=i >= n - 3,
+                    snapshot=dumps)
                 tag, phase = f"joint_{i}", "joint"
             else:
                 tag = None
@@ -601,35 +630,105 @@ class GuidedSampler:
                 seconds[phase] += time.perf_counter() - t0
                 loss_log[tag] = curve
                 self._warn_capacity(tag, renders)
+                if dumps:
+                    _debug_log_phase(debug, tag, curve, renders)
+                    if phase == "joint":
+                        self._debug_render_dump(debug, f"step{i:02d}", hand, obj, noise_pred,
+                                                latents, targets, sched, i)
+            # the intermediate mesh of step 14 (the original pipeline's dump)
+            if dumps and i == min(14, n - 2):
+                self._debug_mesh_dump(debug, f"step{i:02d}", noise_pred, latents, sched, i)
 
             latents = step(sched, i, noise_pred, latents)[0]
 
         return GuidanceResult(latents=latents, noise_pred=noise_pred, hand=hand, obj=obj,
                               losses=loss_log, seconds=seconds)
 
+    @torch.no_grad()
+    def _debug_mesh_dump(self, debug, tag, noise_pred, latents, sched, step_i):
+        """Decode the current x1 estimate at the in-loop resolution and dump it."""
+        res = self.config.octree_resolution
+        xyz, bbox = self._grid(res, latents.device)
+        mesh, _, _ = self._decode(noise_pred, latents, sched, step_i, xyz, bbox)
+        nv, nf = int(mesh.num_verts), int(mesh.num_faces)
+        if nf > 0:
+            debug.dump_mesh(f"{tag}_obj.ply", mesh.verts[:nv].cpu().numpy(),
+                            mesh.faces[:nf].cpu().numpy())
+
+    @torch.no_grad()
+    def _debug_render_dump(self, debug, tag, hand, obj, noise_pred, latents, targets, sched,
+                           step_i):
+        """Normal and disparity renders of the current hand-object scene, as
+        .npy maps (after each joint phase)."""
+        dev = latents.device
+        hand_verts = _transform_hand(targets, hand)
+        xyz, bbox = self._grid(self.config.octree_resolution, dev)
+        mesh, _, _ = self._decode(noise_pred, latents, sched, step_i, xyz, bbox)
+        tmesh = _transform_object(mesh, targets, obj)
+        hoi = _join_meshes(hand_verts, targets.mano_faces,
+                           torch.ones(hand_verts.shape[0], device=dev),
+                           torch.ones(targets.mano_faces.shape[0], device=dev), tmesh)
+        n01, disp01, _ = render_normal_and_disparity(
+            self.camera, hoi.verts, hoi.faces, vertex_normals(hoi), hoi.face_mask,
+            fov_deg=targets.fov_deg, device=dev, **self._raster_kw())
+        debug.dump_array(f"{tag}_normal.npy", n01.cpu().numpy())
+        debug.dump_array(f"{tag}_disp.npy", disp01.cpu().numpy())
+
+    @torch.no_grad()
     def export_meshes(
         self, result: GuidanceResult, targets: GuidanceTargets,
         octree_resolution: Optional[int] = None,
         max_verts: Optional[int] = None, max_faces: Optional[int] = None,
+        device_res_limit: int = 256,
         device: DeviceLike = "cuda",
     ) -> Tuple[PaddedMesh, torch.Tensor]:
         """Final decode and the transformed meshes in moge space: (posed object
-        mesh, posed hand verts). The surface is extracted on the device into
-        static capacities; resolutions above 256 need the sparse two-level
-        export, which is not ported yet."""
+        mesh, posed hand verts).
+
+        Up to ``device_res_limit`` the grid is decoded densely and the surface
+        extracted on the device into static capacities. Above it the two-level
+        decode runs on the device, its compose and an exact-shape marching
+        tets on the host (a 385^3 grid's edge tables would not fit static
+        buffers); the mesh then has exactly its own size.
+        """
         dev = resolve_device(device)
-        res = octree_resolution or self.config.octree_resolution
-        if res > 256:
-            raise NotImplementedError(
-                "export above 256^3 needs the hierarchical decode, which is not ported yet")
+        res = octree_resolution or self.final_octree_resolution or self.config.octree_resolution
         targets = targets.to(dev)
-        xyz, bbox = self._grid(res, dev)
-        mv = max_verts or self.max_verts
-        mf = max_faces or self.max_faces
-        sdf = -vae_query_logits(self.vae, result.latents.to(dev), xyz[None],
-                                self.vae_chunk)[0]
-        mesh = marching_tets(sdf, bbox[0], bbox[1], res, max_verts=mv, max_faces=mf)
-        check_surface_capacity(sdf, res, mv, mf)
+        latents = result.latents.to(dev)
+        lo, hi = [-self.box_v] * 3, [self.box_v] * 3
+        if res <= device_res_limit:
+            xyz, bbox = self._grid(res, dev)
+            mv = max_verts or self.max_verts
+            mf = max_faces or self.max_faces
+            sdf = -vae_query_logits(self.vae, latents, xyz[None], self.vae_chunk)[0]
+            mesh = marching_tets(sdf, bbox[0], bbox[1], res, max_verts=mv, max_faces=mf)
+            check_surface_capacity(sdf, res, mv, mf)
+        else:
+            sdf = -hierarchical_export_logits(self.vae, latents, self.box_v, res,
+                                              chunk=self.vae_chunk)
+            hv, hf = marching_tets_host(sdf, lo, hi, res)
+            verts = torch.from_numpy(hv if len(hv) else np.zeros((1, 3), np.float32)).to(dev)
+            faces = torch.from_numpy(hf if len(hf) else np.zeros((1, 3), np.int32)).to(dev)
+            mesh = PaddedMesh(verts=verts, faces=faces.long(),
+                              vert_mask=torch.full((verts.shape[0],), float(len(hv) > 0),
+                                                   device=dev),
+                              face_mask=torch.full((faces.shape[0],), float(len(hf) > 0),
+                                                   device=dev))
         obj_mesh = _transform_object(mesh, targets, PoseParams(*(x.to(dev) for x in result.obj)))
         hand_verts = _transform_hand(targets, PoseParams(*(x.to(dev) for x in result.hand)))
         return obj_mesh, hand_verts
+
+
+def _debug_log_phase(debug, tag: str, curve: torch.Tensor, renders: Dict[str, list]) -> None:
+    """A phase's loss every 10 iterations and its last, and its render
+    snapshots every 10 iterations, into the debug directory."""
+    arr = curve.float().cpu().numpy()
+    for it in range(0, len(arr), 10):
+        debug.log_loss(f"{tag} iter {it}: loss {arr[it]:.6f}")
+    if len(arr):
+        debug.log_loss(f"{tag} final: loss {arr[-1]:.6f}")
+    for name, stack in (renders or {}).items():
+        if name in _DIAG_CHANNELS or not stack:
+            continue
+        snaps = torch.stack(stack[::10]).cpu().numpy()
+        debug.dump_array(f"{tag}_{name}_grid.npy", snaps)

@@ -11,11 +11,17 @@ import numpy as np
 import torch
 
 from followmyhold_tpu_torch.diffusion.scheduler import make_schedule, step
-from followmyhold_tpu_torch.models.hunyuan import HunyuanDiT, ShapeVAE, vae_query_logits
+from followmyhold_tpu_torch.models.hunyuan import (
+    HunyuanDiT,
+    ShapeVAE,
+    hierarchical_export_logits,
+    vae_query_logits,
+)
 from followmyhold_tpu_torch.ops.grid import generate_dense_grid_points
 from followmyhold_tpu_torch.ops.surface import (
     PaddedMesh,
     marching_tets,
+    marching_tets_host,
     surface_capacity_counts,
 )
 from followmyhold_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -71,19 +77,27 @@ def latents_to_mesh(
     max_verts: int = 32768,
     max_faces: int = 65536,
     chunk: int = 8192,
+    device_res_limit: int = 256,
     device: DeviceLike = "cuda",
 ) -> PaddedMesh:
     """VAE grid decode -> negated logits -> surface (sdf = -logits, so inside
-    < 0). Extraction runs on the device into static capacities; true
-    pre-truncation counts are checked so overruns warn. Resolutions above 256
-    need the sparse two-level export, which is not ported yet."""
+    < 0). Up to ``device_res_limit`` the extraction runs on the device into
+    static capacities, and the true pre-truncation counts are checked so that
+    overruns warn. Above it (the 384^3 export) the two-level decode runs on
+    the device and an exact-shape extraction on the host."""
     dev = resolve_device(device)
-    if octree_resolution > 256:
-        raise NotImplementedError(
-            "export above 256^3 needs the hierarchical decode, which is not ported yet")
+    latents = latents.to(dev)
+    if octree_resolution > device_res_limit:
+        sdf = -hierarchical_export_logits(vae, latents, box_v, octree_resolution, chunk=chunk)
+        hv, hf = marching_tets_host(sdf, [-box_v] * 3, [box_v] * 3, octree_resolution)
+        verts = torch.from_numpy(hv if len(hv) else np.zeros((1, 3), np.float32)).to(dev)
+        faces = torch.from_numpy(hf if len(hf) else np.zeros((1, 3), np.int32)).to(dev).long()
+        return PaddedMesh(verts=verts, faces=faces,
+                          vert_mask=torch.full((verts.shape[0],), float(len(hv) > 0), device=dev),
+                          face_mask=torch.full((faces.shape[0],), float(len(hf) > 0), device=dev))
     xyz, _, _ = generate_dense_grid_points([-box_v] * 3, [box_v] * 3, octree_resolution,
                                            device=dev)
-    sdf = -vae_query_logits(vae, latents.to(dev), xyz[None], chunk)[0]
+    sdf = -vae_query_logits(vae, latents, xyz[None], chunk)[0]
     mesh = marching_tets(sdf, [-box_v] * 3, [box_v] * 3, octree_resolution,
                          max_verts=max_verts, max_faces=max_faces)
     check_surface_capacity(sdf, octree_resolution, max_verts, max_faces)

@@ -1,0 +1,348 @@
+"""The guidance stage: per image, the guided sampler, then {id}_obj.ply and
+{id}_hand.ply.
+
+Counterpart of followmyhold_tpu/guidance/run.py, with the same artifact
+inputs (the inpainted object crop, the masks, the MoGe mesh and fov.json, the
+HaMeR keypoints, the aligned MANO mesh, the hand-to-MoGe transform), the same
+outputs, the same skip-and-continue, task-list sharding and flags. Per image:
+
+1. ``build_targets``: the aligned MANO mesh taken into MoGe space, and the
+   MoGe mesh rendered (through the rasterizer kernels) into the masked normal
+   and disparity targets;
+2. ``encode_condition``: the DINOv2-G conditioner on the crop;
+3. ``GuidedSampler.run``;
+4. ``_export_and_write``: the 384^3 export (two-level decode on the device,
+   compose and marching tets on the host), floater and degenerate-face
+   removal, face reduction, the PLY writes.
+
+``run`` overlaps one image's export (host-bound) with the next image's
+sampler in a one-worker pool, as the reference does. Batched runs
+(``run_batch_images``, ``_run_batched``, ``GuidedSampler.run_batch``) are not
+ported: ``batch_size > 1`` raises.
+
+    python -m followmyhold_tpu_torch.guidance.run --project_root R \\
+        --cropped_obj_img_dir ... --mask_dir ... --moge_out_dir ... \\
+        --hunyuan_hoi_mesh_dir ... --hamer_out_dir ... --h2m_rt_dir ... \\
+        --aligned_mano_dir ... --guidance_out_dir ... [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import traceback
+from typing import List, Optional
+
+import numpy as np
+import torch
+from PIL import Image
+
+from followmyhold_tpu_torch.configs.guidance import OptimizationConfig
+from followmyhold_tpu_torch.configs.profiles import guidance_mesh_caps, optimization_config
+from followmyhold_tpu_torch.diffusion.guidance import GuidanceTargets, GuidedSampler
+from followmyhold_tpu_torch.geometry.hunyuan import build_models, encode_condition
+from followmyhold_tpu_torch.geometry.postprocess import (
+    reduce_faces,
+    remove_degenerate_faces,
+    remove_floaters,
+)
+from followmyhold_tpu_torch.models.mano import load_mano
+from followmyhold_tpu_torch.ops.camera import GuidanceCamera
+from followmyhold_tpu_torch.ops.rasterizer import render_normal_and_disparity
+from followmyhold_tpu_torch.ops.surface import PaddedMesh, vertex_normals
+from followmyhold_tpu_torch.utils.debug import DebugDir
+from followmyhold_tpu_torch.utils.device import DeviceLike, resolve_device
+from followmyhold_tpu_torch.utils.mesh_io import load_mesh, pad_mesh, write_ply
+from followmyhold_tpu_torch.utils.params import scheduler_shift
+from followmyhold_tpu_torch.utils.prng import SEED_GUIDANCE, stage_generator
+
+
+def _load_mask(path: str) -> np.ndarray:
+    return np.asarray(Image.open(path).convert("L")) > 0
+
+
+@torch.no_grad()
+def build_targets(
+    camera: GuidanceCamera,
+    mano_mesh_path: str,
+    t_h2m_path: str,
+    moge_mesh_path: str,
+    hand_mask: np.ndarray,
+    obj_mask: np.ndarray,
+    hamer_kps_path: str,
+    j_regressor: np.ndarray,
+    moge_mesh_max_verts: int = 196608,
+    moge_mesh_max_faces: int = 393216,
+    device: DeviceLike = "cuda",
+) -> GuidanceTargets:
+    """The per-image guidance inputs: the aligned MANO mesh in MoGe space, and
+    the MoGe mesh (packed at the reference's caps) rendered into the normal
+    and disparity targets, masked to the hand and object."""
+    dev = resolve_device(device)
+    t_h2m = np.load(t_h2m_path).astype(np.float32)
+    mano_mesh = load_mesh(mano_mesh_path)
+    mano_verts_moge = mano_mesh.vertices @ t_h2m[:3, :3].T + t_h2m[:3, 3]
+
+    mv, mf, nv, nf = pad_mesh(load_mesh(moge_mesh_path), moge_mesh_max_verts,
+                              moge_mesh_max_faces)
+    pm = PaddedMesh(
+        verts=torch.from_numpy(mv).to(dev), faces=torch.from_numpy(mf).to(dev).long(),
+        vert_mask=(torch.arange(moge_mesh_max_verts, device=dev) < nv).float(),
+        face_mask=(torch.arange(moge_mesh_max_faces, device=dev) < nf).float())
+    moge_normal, moge_disp, out = render_normal_and_disparity(
+        camera, pm.verts, pm.faces, vertex_normals(pm), pm.face_mask, device=dev)
+    if out.bin_max > out.bin_capacity:
+        print(f"WARNING: build_targets: {out.bin_max} MoGe faces in the densest tile, above "
+              f"the rasterizer's {out.bin_capacity}; faces were dropped from the targets")
+    hoi_mask = torch.from_numpy(hand_mask | obj_mask).to(dev)
+    moge_normal = moge_normal * hoi_mask[..., None]
+    moge_disp = moge_disp * hoi_mask
+
+    kps = np.load(hamer_kps_path, allow_pickle=True).item()
+    hamer_2d = np.asarray(kps["mano_2d_kps"], np.float32).reshape(-1, 2)
+
+    def t(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a if dtype is None else a.astype(dtype)))
+
+    return GuidanceTargets(
+        mano_verts_moge=t(mano_verts_moge, np.float32),
+        mano_faces=t(mano_mesh.faces, np.int64),
+        j_regressor=t(np.asarray(j_regressor), np.float32),
+        hamer_2d_kps=t(hamer_2d),
+        moge_normal=moge_normal,
+        moge_disp=moge_disp,
+        hand_mask=t(hand_mask),
+        obj_mask=t(obj_mask),
+        t_h2m=t(t_h2m),
+        fov_deg=torch.tensor(camera.fov_deg, dtype=torch.float32),
+    ).to(dev)
+
+
+def _export_and_write(sampler: GuidedSampler, result, targets, config: OptimizationConfig,
+                      cropped_obj_img_path: str, save_path_obj: str, save_path_hand: str,
+                      debug=None, device: DeviceLike = "cuda"):
+    """The final export, the post-processing and the PLY writes: the
+    host-bound tail of an image, which ``run`` overlaps with the next image's
+    sampler. -> ((verts, faces), hand verts), or (None, None) for an empty
+    mesh."""
+    obj_mesh, hand_verts = sampler.export_meshes(
+        result, targets, octree_resolution=config.final_octree_resolution, device=device)
+    nv, nf = int(obj_mesh.num_verts), int(obj_mesh.num_faces)
+    if nv == 0:
+        print(f"Empty mesh for {cropped_obj_img_path}")
+        if debug is not None:
+            debug.close()
+        return None, None
+    verts = obj_mesh.verts[:nv].cpu().numpy()
+    faces = obj_mesh.faces[:nf].cpu().numpy().astype(np.int32)
+    verts, faces = remove_floaters(verts, faces)
+    verts, faces = remove_degenerate_faces(verts, faces)
+    # the quadric decimation assumes a closed mesh: the export is closed
+    # wherever it stays inside the decode box
+    verts, faces = reduce_faces(verts, faces)
+    hand = hand_verts.cpu().numpy()
+    write_ply(save_path_obj, verts, faces)
+    write_ply(save_path_hand, hand, targets.mano_faces.cpu().numpy())
+    if debug is not None:
+        debug.close()
+    return (verts, faces), hand
+
+
+def run_hunyuan_w_guid(
+    cropped_obj_img_path: str,
+    fovx: float,
+    hamer_for_guid_path: str,
+    aligned_mano_mesh_path: str,
+    cropped_obj_mask_path: str,
+    cropped_hand_mask_path: str,
+    moge_mesh_path: str,
+    T_h2m_path: str,
+    hunyuan_hoi_mesh_path: str,  # accepted and unused, as in the original pipeline
+    save_path_obj: str,
+    save_path_hand: str,
+    config: OptimizationConfig,
+    models=None,
+    j_regressor: Optional[np.ndarray] = None,
+    export_pool=None,
+    initial_noise: Optional[torch.Tensor] = None,
+    device: DeviceLike = "cuda",
+):
+    """One image through the stage. ``models`` is ``build_models()``'s
+    (dit, vae, conditioner) on ``device``; ``initial_noise`` replaces the
+    stage generator's draw (to hold the port against another run). With an
+    ``export_pool`` the export is submitted there and its future returned."""
+    dev = resolve_device(device)
+    hand_mask = _load_mask(cropped_hand_mask_path)
+    obj_mask = _load_mask(cropped_obj_mask_path)
+    H, W = hand_mask.shape
+    camera = GuidanceCamera(height=H, width=W, fov_deg=float(fovx))
+
+    if models is None:
+        models = build_models(device=dev)
+    dit, vae, cond = models
+    if j_regressor is None:
+        j_regressor = load_mano(device="cpu").j_regressor.numpy()
+
+    image_id = os.path.basename(cropped_obj_img_path).split("_")[0]
+    debug = DebugDir(f"exp_obj{image_id}_inpainted")
+    debug.dump_params(dict(config.as_dict()))
+
+    targets = build_targets(camera, aligned_mano_mesh_path, T_h2m_path, moge_mesh_path,
+                            hand_mask, obj_mask, hamer_for_guid_path, j_regressor, device=dev)
+    rgba = np.asarray(Image.open(cropped_obj_img_path).convert("RGBA"))
+    cond_main, uncond_main = encode_condition(cond, rgba, device=dev)
+
+    sampler = GuidedSampler(dit=dit, vae=vae, camera=camera, config=config,
+                            scheduler_shift=scheduler_shift(), **guidance_mesh_caps())
+    result = sampler.run(cond_main, uncond_main, targets,
+                         (vae.cfg.num_latents, vae.cfg.embed_dim), initial_noise=initial_noise,
+                         generator=stage_generator(SEED_GUIDANCE, "guidance", image_id, dev),
+                         device=dev, debug=debug)
+
+    def _export():
+        return _export_and_write(sampler, result, targets, config, cropped_obj_img_path,
+                                 save_path_obj, save_path_hand, debug, device=dev)
+
+    if export_pool is not None:
+        return export_pool.submit(_export)
+    return _export()
+
+
+def _load_task_list(task_list_file: Optional[str], cropped_obj_img_dir: str) -> List[str]:
+    """The images of this task: chunk ``SLURM_ARRAY_TASK_ID`` of a JSON task
+    list, or every file of the crop directory."""
+    if task_list_file and os.path.exists(task_list_file):
+        with open(task_list_file, "r", encoding="utf-8") as f:
+            chunks = json.load(f)
+        return chunks[int(os.environ.get("SLURM_ARRAY_TASK_ID", 0))]
+    return sorted(os.listdir(cropped_obj_img_dir))
+
+
+def _report_failure(what: str, exc: BaseException) -> None:
+    """Print an image's failure with its traceback and carry on."""
+    print(f"Error in processing {what} : {exc}")
+    traceback.print_exception(type(exc), exc, exc.__traceback__)
+
+
+def run(
+    project_root: str,
+    cropped_obj_img_dir: str,
+    mask_dir: str,
+    moge_out_dir: str,
+    hunyuan_hoi_mesh_dir: str,
+    hamer_out_dir: str,
+    h2m_rt_dir: str,
+    aligned_mano_dir: str,
+    guidance_out_dir: str,
+    task_list_file: Optional[str] = None,
+    shard_index: int = 0,
+    shard_count: int = 1,
+    batch_size: int = 1,
+    device: DeviceLike = "cuda",
+) -> None:
+    """Every assigned image through the stage; an image whose outputs exist,
+    or whose masks are empty, is skipped, and a failing image is reported
+    (with its traceback) without stopping the others."""
+    if batch_size > 1:
+        raise NotImplementedError(
+            "batched guidance (run_batch_images, _run_batched, GuidedSampler.run_batch) is "
+            "not ported yet; run with batch_size=1")
+    dev = resolve_device(device)
+    config = optimization_config()
+    os.makedirs(guidance_out_dir, exist_ok=True)
+    assigned = _load_task_list(task_list_file, cropped_obj_img_dir)[shard_index::shard_count]
+
+    models = build_models(device=dev)
+    j_reg_path = os.path.join(hamer_out_dir, "J_regressor_hamer.npy")
+    j_regressor = np.load(j_reg_path) if os.path.exists(j_reg_path) else None
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    prev = None        # (image_id, export future)
+
+    def _finish(entry):
+        if entry is None:
+            return
+        iid, fut = entry
+        try:
+            obj, _ = fut.result()
+            print(f"Error in reconstruction for {iid}" if obj is None
+                  else f"Reconstructed object {iid}")
+        except Exception as e:
+            _report_failure(iid, e)
+
+    for name in assigned:
+        try:
+            path = os.path.join(cropped_obj_img_dir, name)
+            image_id = name.split("_")[0]
+            hand_mask_path = os.path.join(mask_dir, f"{image_id}_cropped_hand_mask.png")
+            obj_mask_path = os.path.join(mask_dir, f"{image_id}_cropped_obj_mask.png")
+            moge_dir = os.path.join(moge_out_dir, f"{image_id}_cropped_hoi")
+            save_obj = os.path.join(guidance_out_dir, f"{image_id}_obj.ply")
+            save_hand = os.path.join(guidance_out_dir, f"{image_id}_hand.ply")
+
+            if os.path.exists(save_obj) and os.path.exists(save_hand):
+                print(f"{image_id} already exists, skipping")
+                continue
+            with open(os.path.join(moge_dir, "fov.json"), "r", encoding="utf-8") as f:
+                fovx = float(json.load(f)["fov_x"])
+            if not (_load_mask(hand_mask_path).any() and _load_mask(obj_mask_path).any()):
+                print(f"Skipping {image_id} due to empty mask")
+                continue
+
+            print(f"Processing {image_id}")
+            fut = run_hunyuan_w_guid(
+                cropped_obj_img_path=path, fovx=fovx,
+                hamer_for_guid_path=os.path.join(hamer_out_dir,
+                                                 f"{image_id}_kps_for_guidance.npy"),
+                aligned_mano_mesh_path=os.path.join(
+                    aligned_mano_dir, f"{image_id}_hamer_aligned_mano.ply"),
+                cropped_obj_mask_path=obj_mask_path,
+                cropped_hand_mask_path=hand_mask_path,
+                moge_mesh_path=os.path.join(moge_dir, "mesh.ply"),
+                T_h2m_path=os.path.join(h2m_rt_dir, f"{image_id}_hoi_mesh.npy"),
+                hunyuan_hoi_mesh_path=os.path.join(hunyuan_hoi_mesh_dir,
+                                                   f"{image_id}_hoi_mesh.ply"),
+                save_path_obj=save_obj, save_path_hand=save_hand,
+                config=config, models=models, j_regressor=j_regressor,
+                export_pool=pool, device=dev)
+            # the previous image's export ran behind this image's sampler
+            _finish(prev)
+            prev = (image_id, fut)
+        except Exception as e:
+            _report_failure(name, e)
+            continue
+
+    _finish(prev)
+    pool.shutdown(wait=True)
+    print("Finished processing all images")
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description="Guided shape reconstruction")
+    parser.add_argument("--project_root", required=True)
+    parser.add_argument("--cropped_obj_img_dir", required=True)
+    parser.add_argument("--mask_dir", required=True)
+    parser.add_argument("--moge_out_dir", required=True)
+    parser.add_argument("--hunyuan_hoi_mesh_dir", required=True)
+    parser.add_argument("--hamer_out_dir", required=True)
+    parser.add_argument("--h2m_rt_dir", required=True)
+    parser.add_argument("--aligned_mano_dir", required=True)
+    parser.add_argument("--guidance_out_dir", required=True)
+    parser.add_argument("--task_list_file", default=None)
+    parser.add_argument("--shard_index", type=int, default=0)
+    parser.add_argument("--shard_count", type=int, default=1)
+    parser.add_argument("--batch_size", type=int, default=1,
+                        help="images per sampler run (only 1 is ported)")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args()
+    run(args.project_root, args.cropped_obj_img_dir, args.mask_dir, args.moge_out_dir,
+        args.hunyuan_hoi_mesh_dir, args.hamer_out_dir, args.h2m_rt_dir, args.aligned_mano_dir,
+        args.guidance_out_dir, args.task_list_file, args.shard_index, args.shard_count,
+        args.batch_size, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -18,8 +18,9 @@ rematerialisation knobs: ``ShapeVAEConfig.remat_blocks`` checkpoints each
 decoder block, and the geo-decoder query takes ``remat`` in
 {'full', 'tail', 'none'}; none of them changes the numbers. The in-loop
 two-level decode, ``vae_query_logits_hier_grid``, refines only the cells near
-the surface. The image conditioner and the 384^3 export decode are not ported
-yet.
+the surface; the export's two-level decode, ``hierarchical_export_logits``,
+does the same at 384^3 with the compose on the host. The image conditioner
+(DINOv2-G, ``models/vit.py``) turns the object crop into condition tokens.
 """
 
 from __future__ import annotations
@@ -550,6 +551,21 @@ def _refine_point_budget(cf: int) -> int:
     return (9 * cf ** 3) // 8
 
 
+def _refine_points(cell_ids: torch.Tensor, res_c: int, cf: int, n_f: int) -> torch.Tensor:
+    """The non-coarse fine-lattice points of the given cells, as ascending flat
+    ids, each once (adjacent cells share their face and edge points)."""
+    ci = cell_ids // (res_c * res_c)
+    cj = (cell_ids // res_c) % res_c
+    ck = cell_ids % res_c
+    base = torch.stack([ci, cj, ck], dim=-1) * cf                        # [K,3]
+    offs = torch.as_tensor(_noncoarse_offsets(cf), device=cell_ids.device)   # [P,3]
+    fine_idx = base[:, None, :] + offs[None]                             # [K,P,3]
+    flat_all = (fine_idx[..., 0] * n_f + fine_idx[..., 1]) * n_f + fine_idx[..., 2]
+    mark = torch.zeros(n_f ** 3, dtype=torch.bool, device=cell_ids.device)
+    mark[flat_all.reshape(-1)] = True
+    return mark.nonzero().squeeze(1)
+
+
 def vae_query_logits_hier_grid(
     vae: ShapeVAE,
     latents: torch.Tensor,            # [1, L, E]
@@ -619,17 +635,8 @@ def vae_query_logits_hier_grid(
     cell_ids = cell_ids[:cell_cap]
 
     # level 2: each non-coarse lattice point of the selected cells, once
-    ci = cell_ids // (res_c * res_c)
-    cj = (cell_ids // res_c) % res_c
-    ck = cell_ids % res_c
-    base = torch.stack([ci, cj, ck], dim=-1) * cf                        # [K,3]
-    offs = torch.as_tensor(_noncoarse_offsets(cf), device=dev)           # [P,3]
-    fine_idx = base[:, None, :] + offs[None]                             # [K,P,3]
-    flat_all = ((fine_idx[..., 0] * n_f + fine_idx[..., 1]) * n_f + fine_idx[..., 2])
-    mark = torch.zeros(n_f ** 3, dtype=torch.bool, device=dev)
-    mark[flat_all.reshape(-1)] = True
     point_cap = min(_refine_point_budget(cf) * cell_cap, n_f ** 3)
-    pt_ids = mark.nonzero().squeeze(1)
+    pt_ids = _refine_points(cell_ids, res_c, cf, n_f)
     n_pts = pt_ids.numel()
     pt_ids = pt_ids[:point_cap]
     fijk = torch.stack([pt_ids // (n_f * n_f), (pt_ids // n_f) % n_f, pt_ids % n_f], dim=-1)
@@ -649,3 +656,267 @@ def vae_query_logits_hier_grid(
     # points scaled into cell units in float32, as the reference computes it
     pts_scaled = int(np.ceil(np.float32(n_pts) / np.float32(point_cap) * np.float32(cell_cap)))
     return dense[None], max(n_sel, pts_scaled)
+
+
+# ---------------------------------------------------------------------------
+# conditioner
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ConditionerConfig:
+    """DINOv2-G image encoder -> the DiT's condition tokens.
+
+    DINOv2-giant uses the fused SwiGLU FFN; the tiny test config keeps the
+    plain MLP. The condition sequence is cls + patches (1,370 tokens at
+    518 / 14)."""
+
+    image_size: int = 518
+    patch_size: int = 14
+    embed_dim: int = 1536
+    depth: int = 40
+    heads: int = 24
+    ffn: str = "swiglu"
+    use_cls_token: bool = True
+    # the encoder takes the optional mask as a fourth channel (the Flax
+    # module infers it from the first call; here it is fixed at construction)
+    use_mask: bool = False
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def n_tokens(self) -> int:
+        return (self.image_size // self.patch_size) ** 2 + (1 if self.use_cls_token else 0)
+
+    def vit_config(self):
+        from followmyhold_tpu_torch.models.vit import ViTConfig
+
+        return ViTConfig(
+            img_size=(self.image_size, self.image_size), patch_size=self.patch_size,
+            embed_dim=self.embed_dim, depth=self.depth, num_heads=self.heads,
+            use_cls_token=True, layerscale_init=1e-5, ffn=self.ffn,
+            in_chans=4 if self.use_mask else 3, dtype=self.dtype)
+
+
+COND_FULL = ConditionerConfig()
+COND_TINY = ConditionerConfig(image_size=28, patch_size=14, embed_dim=32, depth=1, heads=2,
+                              ffn="mlp", dtype=torch.float32)
+
+_IMAGE_MEAN = (0.485, 0.456, 0.406)
+_IMAGE_STD = (0.229, 0.224, 0.225)
+
+
+class ImageConditioner(nn.Module):
+    """image [B,H,W,3] in [0,1] (+ an optional mask channel) -> {'main': tokens}.
+
+    Normalised first, then resized to the encoder's square input with the
+    reference's ``jax.image.resize`` cubic semantics (``ops/image.py``)."""
+
+    def __init__(self, cfg: ConditionerConfig, device=None):
+        super().__init__()
+        from followmyhold_tpu_torch.models.vit import ViT
+
+        self.cfg = cfg
+        self.encoder = ViT(cfg.vit_config(), device)
+
+    def forward(self, image: torch.Tensor, mask: Optional[torch.Tensor] = None) -> dict:
+        from followmyhold_tpu_torch.ops.image import resize_cubic
+
+        c = self.cfg
+        x = image.float()
+        if mask is not None:
+            x = torch.cat([x, mask.float()[..., None]], dim=-1)
+        extra = [0.5] if mask is not None else []
+        mean = torch.tensor(list(_IMAGE_MEAN) + extra, dtype=torch.float32, device=x.device)
+        std = torch.tensor(list(_IMAGE_STD) + extra, dtype=torch.float32, device=x.device)
+        x = (x - mean) / std
+        if x.shape[1] != c.image_size:
+            x = resize_cubic(x, c.image_size, c.image_size)
+        return {"main": self.encoder(x, keep_prefix=c.use_cls_token)}
+
+
+class Conditioner(nn.Module):
+    """The image encoder and the unconditional embedding. The latter is zeros
+    in the original model; it is a zero-initialised parameter here, as in the
+    reference, so that a checkpoint that ships a learned table converts onto
+    it."""
+
+    def __init__(self, cfg: ConditionerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = ImageConditioner(cfg, device)
+        self.uncond_embedding = nn.Parameter(torch.zeros(
+            (1, cfg.n_tokens, cfg.embed_dim), dtype=torch.float32, device=device))
+
+    def forward(self, image: torch.Tensor, mask: Optional[torch.Tensor] = None) -> dict:
+        return self.encoder(image, mask)
+
+    def unconditional_embedding(self, bsz: int) -> dict:
+        return {"main": self.uncond_embedding.expand(bsz, -1, -1)}
+
+
+# ---------------------------------------------------------------------------
+# two-level export decode (384^3)
+# ---------------------------------------------------------------------------
+
+# exactness needs n_selected <= cap; hierarchical_export_logits warns above it
+EXPORT_CELL_CAP = 65536
+
+
+def _linspace_f32(lo: float, hi: float, n: int) -> np.ndarray:
+    """``jnp.linspace(lo, hi, n)`` in float32 as JAX computes it:
+    lo * (1 - t) + hi * t with t = i / (n - 1), then the exact endpoint."""
+    lo, hi = np.float32(lo), np.float32(hi)
+    t = np.arange(n - 1, dtype=np.float32) / np.float32(n - 1)
+    return np.concatenate([lo * (np.float32(1.0) - t) + hi * t, [hi]]).astype(np.float32)
+
+
+def _refine_point_ids_device(g_c: torch.Tensor, resolution: int, coarse_factor: int,
+                             cell_cap: int, pad_factor: float) -> Tuple[torch.Tensor, int, int]:
+    """The export's refine points, computed where ``g_c`` lies: the ascending,
+    deduplicated fine-lattice ids of the selected cells' non-coarse points,
+    with the reference's static capacities: cells beyond ``cell_cap`` (in
+    ascending id order) and points beyond ``_refine_point_budget(cf) *
+    cell_cap`` are dropped. Where the reference pads both arrays to their caps,
+    the ids here are sized exactly; with no cell selected, cell 0's points
+    stand in, as the reference's padding rows make them.
+    -> (pt_ids, n_selected, n_points)."""
+    res_c = resolution // coarse_factor
+    n_f = resolution + 1
+    cell_ids = _select_surface_cells(g_c, res_c, pad_factor).nonzero().squeeze(1)
+    n_sel = cell_ids.numel()
+    if n_sel == 0:
+        cell_ids = torch.zeros(1, dtype=torch.long, device=g_c.device)
+    pt_ids = _refine_points(cell_ids[:cell_cap], res_c, coarse_factor, n_f)
+    point_cap = min(_refine_point_budget(coarse_factor) * cell_cap, n_f ** 3)
+    return pt_ids[:point_cap], n_sel, pt_ids.numel()
+
+
+def refine_point_ids_host(g_c, resolution: int, coarse_factor: int = 4,
+                          cell_cap: int = EXPORT_CELL_CAP,
+                          pad_factor: float = 0.5) -> np.ndarray:
+    """The host twin of the device's refine ids: the same computation on the
+    CPU from the same coarse values. The selection's float32 operations
+    (slices, min, max, abs, one multiply, compares) are exact, so the ids are
+    the device's bit for bit."""
+    g_c = torch.from_numpy(np.ascontiguousarray(g_c, np.float32))
+    return _refine_point_ids_device(g_c, resolution, coarse_factor, cell_cap,
+                                    pad_factor)[0].numpy()
+
+
+def refine_ids_digest(pt_ids) -> int:
+    """Order-invariant digest of refine-point ids: their uint32 wrap-around sum.
+    Id 0 is coarse-aligned, never a refine point, so a zero-padded id array
+    and its valid prefix digest the same."""
+    if isinstance(pt_ids, torch.Tensor):
+        pt_ids = pt_ids.cpu().numpy()
+    return int(np.asarray(pt_ids).astype(np.uint32).sum(dtype=np.uint32))
+
+
+@torch.no_grad()
+def vae_query_logits_hierarchical(
+    vae: ShapeVAE,
+    latents: torch.Tensor,            # [1, L, E]
+    bbox_min,
+    bbox_max,
+    resolution: int,
+    chunk: int = 8192,
+    coarse_factor: int = 4,
+    cell_cap: int = EXPORT_CELL_CAP,
+    pad_factor: float = 0.5,
+):
+    """The export's two-level decode, device part: decode the coarse lattice
+    (res / cf per axis), select the cells whose corners could cross zero
+    within ``pad_factor`` of their spread, and decode only those cells'
+    non-coarse fine points, each once.
+
+    Returns (coarse grid [n_c,n_c,n_c], refine ids [n], refine values [n],
+    n_selected, n_points), n = min(n_points, point cap), on the device.
+    ``compose_hierarchical_grid`` builds the dense-equivalent grid on the host.
+    """
+    if resolution % coarse_factor:
+        raise ValueError(f"resolution {resolution} is not a multiple of {coarse_factor}")
+    if latents.shape[0] != 1:
+        raise ValueError("the export decode is per image: latents must be [1, L, E]")
+    dev = latents.device
+    n_c = resolution // coarse_factor + 1
+    n_f = resolution + 1
+    lo = np.asarray(bbox_min, np.float32)
+    hi = np.asarray(bbox_max, np.float32)
+    step_f = torch.from_numpy((hi - lo) / np.float32(resolution)).to(dev)
+
+    # level 1: the coarse lattice, with the reference's linspace
+    axes = [_linspace_f32(lo[d], hi[d], n_c) for d in range(3)]
+    pts_c = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(1, -1, 3)
+    kv = vae_decode_kv(vae, latents)            # once for both levels
+    g_c = _geo_query_grouped(vae, kv, torch.from_numpy(pts_c).to(dev), chunk)[0]
+    g_c = g_c.reshape(n_c, n_c, n_c)
+
+    # level 2: the selected cells' deduplicated refine points
+    pt_ids, n_sel, n_pts = _refine_point_ids_device(g_c, resolution, coarse_factor, cell_cap,
+                                                    pad_factor)
+    fijk = torch.stack([pt_ids // (n_f * n_f), (pt_ids // n_f) % n_f, pt_ids % n_f], dim=-1)
+    pts_f = torch.from_numpy(lo).to(dev) + fijk.float() * step_f
+    g_f = _geo_query_grouped(vae, kv, pts_f[None], chunk)[0]
+    return g_c, pt_ids, g_f, n_sel, n_pts
+
+
+def compose_hierarchical_grid(g_c, refine_vals, resolution: int, coarse_factor: int = 4,
+                              cell_cap: int = EXPORT_CELL_CAP, pad_factor: float = 0.5,
+                              expect_n_pts=None, pt_ids=None,
+                              expect_ids_digest=None) -> np.ndarray:
+    """The export's two-level decode, host part: each fine point takes its
+    coarse cell's lower-corner value (a floor fill), and the refined points
+    are overwritten with their exact values. Every zero-crossing fine cell
+    lies in a selected coarse cell, so marching tets emits what it emits on
+    the dense decode (given n_selected <= cell_cap).
+
+    ``pt_ids`` are the device's refine ids. Without them the host recomputes
+    the ids from ``g_c`` (``refine_point_ids_host``; ``cell_cap`` and
+    ``pad_factor`` must be the device call's); ``expect_n_pts`` and
+    ``expect_ids_digest`` then check that the two selections agree."""
+    g_c = np.asarray(g_c, np.float32)
+    refine_vals = np.asarray(refine_vals, np.float32)
+    cf = coarse_factor
+    n_f = resolution + 1
+    idx = np.arange(n_f) // cf
+    dense = g_c[idx][:, idx][:, :, idx].reshape(-1)
+    if pt_ids is not None:
+        pt_ids = np.asarray(pt_ids)
+        k = pt_ids.size if expect_n_pts is None else min(pt_ids.size, int(expect_n_pts))
+        dense[pt_ids[:k]] = refine_vals[:k]
+        return dense
+
+    host_ids = refine_point_ids_host(g_c, resolution, cf, cell_cap, pad_factor)
+    if expect_n_pts is not None:
+        point_cap = min(_refine_point_budget(cf) * cell_cap, n_f ** 3)
+        if min(int(expect_n_pts), point_cap) != host_ids.size:
+            raise RuntimeError(
+                f"hierarchical compose: the host recomputed {host_ids.size} refine points "
+                f"but the device queried {min(int(expect_n_pts), point_cap)}: the selections "
+                f"diverged; refusing to scatter misaligned values")
+    if expect_ids_digest is not None and refine_ids_digest(host_ids) != int(expect_ids_digest):
+        raise RuntimeError(
+            f"hierarchical compose: host refine-id digest {refine_ids_digest(host_ids)} != "
+            f"device digest {int(expect_ids_digest)}: the selections diverged with the same "
+            f"count; refusing to scatter misaligned values")
+    dense[host_ids] = refine_vals[: host_ids.size]
+    return dense
+
+
+def hierarchical_export_logits(vae: ShapeVAE, latents: torch.Tensor, box_v: float,
+                               resolution: int, chunk: int = 8192,
+                               cell_cap: int = EXPORT_CELL_CAP,
+                               coarse_factor: int = 4) -> np.ndarray:
+    """Device two-level decode, copy to the host, host compose, with the
+    reference's capacity warning: the dense [(res+1)^3] float32 logits grid
+    (callers negate it for the SDF)."""
+    g_c, pt_ids, fine, n_sel, n_pts = vae_query_logits_hierarchical(
+        vae, latents, [-box_v] * 3, [box_v] * 3, resolution, chunk=chunk,
+        coarse_factor=coarse_factor, cell_cap=cell_cap)
+    grid = compose_hierarchical_grid(g_c.cpu().numpy(), fine.cpu().numpy(), resolution,
+                                     coarse_factor=coarse_factor, cell_cap=cell_cap,
+                                     expect_n_pts=n_pts, pt_ids=pt_ids.cpu().numpy())
+    pt_cap = min(_refine_point_budget(coarse_factor) * cell_cap, (resolution + 1) ** 3)
+    if n_sel > cell_cap or n_pts > pt_cap:
+        print(f"WARNING: hierarchical decode capacity overflow: {n_sel}/{cell_cap} surface "
+              f"cells, {n_pts}/{pt_cap} refine points — raise cell_cap")
+    return grid

@@ -1,15 +1,20 @@
 """MANO hand model data and keypoints.
 
-Counterpart of followmyhold_tpu/models/mano.py, as far as the guided sampler
-needs it: the model container, the deterministic synthetic stand-in with the
-real structure (778 verts / 16 joints / 1538 faces), and the keypoint readout
-from an already-posed mesh. Linear blend skinning is not on the sampler's path
+Counterpart of followmyhold_tpu/models/mano.py, as far as the guidance stage
+needs it: the model container, the loader of the official MANO_RIGHT.pkl
+(with a tolerant unpickler, so chumpy need not be installed), the
+deterministic synthetic stand-in with the real structure (778 verts / 16
+joints / 1538 faces) that the loader falls back to, and the keypoint readout
+from an already-posed mesh. Linear blend skinning is not on the stage's path
 and is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import io
+import os
+import pickle
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -35,6 +40,69 @@ class ManoModel(NamedTuple):
     j_regressor: torch.Tensor   # [16, 778]
     lbs_weights: torch.Tensor   # [778, 16]
     faces: torch.Tensor         # [1538, 3] int64
+
+
+class _ChumpyStub:
+    """Stands in for chumpy's arrays when the official pickle is read."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        self.__dict__.update(state if isinstance(state, dict) else {})
+
+
+class _TolerantUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.startswith("chumpy") or module == "scipy.sparse.csc":
+            if name in ("Ch", "ch"):
+                return _ChumpyStub
+        return super().find_class(module, name)
+
+
+def _to_np(x) -> np.ndarray:
+    if isinstance(x, np.ndarray):
+        return x
+    for attr in ("r", "x", "data"):
+        v = getattr(x, attr, None)
+        if isinstance(v, np.ndarray):
+            return v
+    if hasattr(x, "toarray"):
+        return x.toarray()
+    d = getattr(x, "__dict__", {})
+    for attr in ("x", "r", "a"):
+        if attr in d and isinstance(d[attr], np.ndarray):
+            return d[attr]
+    raise TypeError(f"Cannot convert {type(x)} to ndarray")
+
+
+def load_mano(path: Optional[str] = None, device: DeviceLike = "cuda") -> ManoModel:
+    """MANO_RIGHT.pkl in the official layout (default: under the assets root),
+    or ``synthetic_mano`` when the file does not exist."""
+    dev = resolve_device(device)
+    if path is None:
+        from followmyhold_tpu_torch.configs.paths import assets_root
+
+        path = os.path.join(assets_root(), "mano", "MANO_RIGHT.pkl")
+    if not os.path.exists(path):
+        return synthetic_mano(device=dev)
+    with open(path, "rb") as f:
+        data = _TolerantUnpickler(io.BytesIO(f.read()), encoding="latin1").load()
+    shapedirs = _to_np(data["shapedirs"]).astype(np.float32)[..., :NUM_BETAS]
+    # smplx keeps posedirs as [V,3,P] and reshapes them to [P, V*3]
+    posedirs = _to_np(data["posedirs"]).astype(np.float32).reshape(NUM_VERTS * 3, -1).T
+
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype))).to(dev)
+
+    return ManoModel(
+        v_template=t(_to_np(data["v_template"])),
+        shapedirs=t(shapedirs),
+        posedirs=t(posedirs),
+        j_regressor=t(_to_np(data["J_regressor"])),
+        lbs_weights=t(_to_np(data["weights"])),
+        faces=t(_to_np(data["f"]), np.int64),
+    )
 
 
 def synthetic_mano(seed: int = 0, device: DeviceLike = "cuda") -> ManoModel:

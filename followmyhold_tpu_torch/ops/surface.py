@@ -304,3 +304,84 @@ def surface_capacity_counts(sdf_grid: torch.Tensor, resolution: int,
     n_faces = sum(int(tri_counts[tnum][case].sum().item())
                   for tnum, case in enumerate(_tet_cases(s, resolution)))
     return n_active, n_faces
+
+
+# --------------------------------------------------------------------------- #
+# host extraction for the export
+# --------------------------------------------------------------------------- #
+
+def _bit2dir() -> np.ndarray:
+    bit2dir = np.zeros(8, np.int64)
+    for idx, d in enumerate(_DIRS):
+        bit2dir[d[0] * 4 + d[1] * 2 + d[2]] = idx
+    return bit2dir
+
+
+def _emit_cells_plain(s: np.ndarray, cells: np.ndarray, bbox_min: np.ndarray,
+                      step: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The per-cell emission of ``marching_tets_host`` in NumPy: the plain
+    version of ``native.marching_tets_cells``. Vertices in ascending edge-key
+    order, faces in (tet, cell, triangle) order."""
+    n = s.shape[0]
+    inside = s < 0
+    bit2dir = _bit2dir()
+    cidx = cells[:, None, :] + _CORNERS[None]                 # [C,8,3]
+    ins = inside[cidx[..., 0], cidx[..., 1], cidx[..., 2]].astype(np.int64)
+    face_keys = []
+    for tnum in range(6):
+        tet = _TETS[tnum]
+        case = ins[:, tet[0]] + 2 * ins[:, tet[1]] + 4 * ins[:, tet[2]] + 8 * ins[:, tet[3]]
+        tris = _TRI_TABLE[tnum][case]                          # [C,2,3]
+        valid = tris[:, :, 0] >= 0
+        ecs = _EDGE_CORNERS[tnum][np.maximum(tris, 0)]         # [C,2,3,2]
+        ca, cb = _CORNERS[ecs[..., 0]], _CORNERS[ecs[..., 1]]
+        lo = np.minimum(ca, cb) + cells[:, None, None, :]
+        d = np.abs(cb - ca)
+        dir_idx = bit2dir[d[..., 0] * 4 + d[..., 1] * 2 + d[..., 2]]
+        key = (lo[..., 0] * n * n + lo[..., 1] * n + lo[..., 2]) * 7 + dir_idx
+        face_keys.append(key[valid])
+    uniq, inv = np.unique(np.concatenate(face_keys, axis=0), return_inverse=True)
+    faces = inv.reshape(-1, 3).astype(np.int32)
+    vid, dc = uniq // 7, uniq % 7
+    g1 = np.stack([vid // (n * n), (vid // n) % n, vid % n], axis=-1)
+    d = _DIRS[dc]
+    g2 = g1 + d
+    s1 = s[g1[:, 0], g1[:, 1], g1[:, 2]].astype(np.float64)
+    s2 = s[g2[:, 0], g2[:, 1], g2[:, 2]].astype(np.float64)
+    denom = s1 - s2
+    t = np.where(np.abs(denom) > 1e-300, s1 / np.where(denom == 0, 1.0, denom), 0.5)
+    t = np.clip(t, 0.0, 1.0)
+    verts = bbox_min + (g1 + t[:, None] * d) * step
+    return verts.astype(np.float32), faces
+
+
+def _sign_change_cells(s: np.ndarray, resolution: int) -> np.ndarray:
+    """[C,3] cells of the grid whose corners are not all on one side."""
+    inside = s < 0
+    any_ = np.zeros((resolution,) * 3, bool)
+    all_ = np.ones((resolution,) * 3, bool)
+    for dx, dy, dz in _CORNERS:
+        v = inside[dx:dx + resolution, dy:dy + resolution, dz:dz + resolution]
+        any_ |= v
+        all_ &= v
+    return np.argwhere(any_ & ~all_).astype(np.int64)
+
+
+def marching_tets_host(sdf_grid: np.ndarray, bbox_min, bbox_max, resolution: int,
+                       iso: float = 0.0) -> Tuple[np.ndarray, np.ndarray]:
+    """Host extraction with exact shapes, for the export (384^3 would not fit
+    the static buffers of ``marching_tets``): the same tet tables, so the
+    same windings and vertices; vertices deduplicated through the same global
+    edge keys. The cells with a sign change are found in NumPy; the native
+    library emits their geometry (``_emit_cells_plain`` is its plain version)."""
+    from followmyhold_tpu_torch import native
+
+    n = resolution + 1
+    s = np.asarray(sdf_grid, np.float32).reshape(n, n, n) - np.float32(iso)
+    bbox_min = np.asarray(bbox_min, np.float64)
+    step = (np.asarray(bbox_max, np.float64) - bbox_min) / resolution
+    cells = _sign_change_cells(s, resolution)
+    if len(cells) == 0:
+        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
+    return native.marching_tets_cells(s, cells, _TETS, _TRI_TABLE, _EDGE_CORNERS, _CORNERS,
+                                      _DIRS, _bit2dir(), bbox_min, step)

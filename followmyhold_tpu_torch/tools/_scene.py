@@ -32,3 +32,83 @@ def hand_scene(dev, size: int = 512):
         moge_disp=torch.from_numpy(rng.uniform(0, 1, (size, size)).astype(np.float32)),
         hand_mask=hand_mask, obj_mask=obj_mask, t_h2m=t_h2m).to(dev)
     return mano, verts, camera, targets
+
+
+def moge_grid_mesh(rows: int, cols: int, size: int, fov_deg: float, seed: int = 0):
+    """An image-grid mesh as MoGe exports it: one vertex per grid sample
+    spread over the whole image, back-projected at a smooth depth (0.6-1.0 in
+    front of the camera, GL convention), two faces per grid cell.
+    -> (verts [rows*cols, 3] float32, faces [2*(rows-1)*(cols-1), 3] int32)."""
+    cam = GuidanceCamera(height=size, width=size, fov_deg=fov_deg)
+    f = cam.focal_px
+    rng = np.random.default_rng(seed)
+    v, u = np.meshgrid(np.linspace(0, size - 1, rows), np.linspace(0, size - 1, cols),
+                       indexing="ij")
+    a, b = rng.uniform(2, 5, 2)
+    depth = 0.8 + 0.15 * np.sin(a * u / size) * np.cos(b * v / size)
+    x = (u - (size - 1) / 2.0) * depth / f
+    y = -(v - (size - 1) / 2.0) * depth / f
+    verts = np.stack([x, y, -depth], -1).reshape(-1, 3).astype(np.float32)
+    idx = np.arange(rows * cols).reshape(rows, cols)
+    a0, a1 = idx[:-1, :-1].reshape(-1), idx[:-1, 1:].reshape(-1)
+    b0, b1 = idx[1:, :-1].reshape(-1), idx[1:, 1:].reshape(-1)
+    faces = np.concatenate([np.stack([a0, b0, a1], -1), np.stack([a1, b0, b1], -1)])
+    return verts, faces.astype(np.int32)
+
+
+def write_stage_inputs(root: str, image_id: str = "000001", size: int = 512,
+                       moge_grid=(384, 512), fov_deg: float = 60.0, seed: int = 0) -> dict:
+    """Synthetic artifacts of one image, written under ``root`` with the file
+    names the guidance stage reads: the RGBA crop, the hand and object masks,
+    the MoGe grid mesh with fov.json, T_h2m, the synthetic hand as the aligned
+    MANO mesh, the HaMeR keypoints and J_regressor_hamer.npy. -> the
+    directories, keyed as ``guidance.run.run``'s arguments."""
+    import json
+    import os
+
+    from PIL import Image
+
+    from followmyhold_tpu_torch.utils.mesh_io import write_ply
+
+    dirs = {k: os.path.join(root, k) for k in (
+        "cropped_obj_img_dir", "mask_dir", "moge_out_dir", "hunyuan_hoi_mesh_dir",
+        "hamer_out_dir", "h2m_rt_dir", "aligned_mano_dir", "guidance_out_dir")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    s = size / 512.0
+
+    rgba = rng.integers(0, 256, (size, size, 4)).astype(np.uint8)
+    rgba[..., 3] = 255
+    Image.fromarray(rgba, "RGBA").save(
+        os.path.join(dirs["cropped_obj_img_dir"], f"{image_id}_cropped_inpainted.png"))
+    hand = np.zeros((size, size), np.uint8)
+    hand[int(160 * s):int(320 * s), int(160 * s):int(320 * s)] = 255
+    obj = np.zeros((size, size), np.uint8)
+    obj[int(240 * s):int(400 * s), int(240 * s):int(400 * s)] = 255
+    Image.fromarray(hand).save(os.path.join(dirs["mask_dir"], f"{image_id}_cropped_hand_mask.png"))
+    Image.fromarray(obj).save(os.path.join(dirs["mask_dir"], f"{image_id}_cropped_obj_mask.png"))
+
+    moge_dir = os.path.join(dirs["moge_out_dir"], f"{image_id}_cropped_hoi")
+    os.makedirs(moge_dir, exist_ok=True)
+    write_ply(os.path.join(moge_dir, "mesh.ply"), *moge_grid_mesh(*moge_grid, size, fov_deg, seed))
+    with open(os.path.join(moge_dir, "fov.json"), "w", encoding="utf-8") as f:
+        json.dump({"fov_x": fov_deg}, f)
+
+    # the object's box (+-1.1) 3 m in front of the camera at unit scale, and the
+    # hand in MoGe space as hand_scene places it, stored in the object's space
+    t_h2m = np.eye(4, dtype=np.float32)
+    t_h2m[2, 3] = -3.0
+    np.save(os.path.join(dirs["h2m_rt_dir"], f"{image_id}_hoi_mesh.npy"), t_h2m)
+    mano = synthetic_mano(device="cpu")
+    v = mano.v_template.numpy()
+    v_moge = v - v.mean(0) + np.array([0.0, 0.0, -0.8], np.float32)
+    v_hun = v_moge - t_h2m[:3, 3]
+    write_ply(os.path.join(dirs["aligned_mano_dir"], f"{image_id}_hamer_aligned_mano.ply"),
+              v_hun.astype(np.float32), mano.faces.numpy())
+    kps = rng.uniform(80 * s, 432 * s, (21, 2)).astype(np.float32)
+    np.save(os.path.join(dirs["hamer_out_dir"], f"{image_id}_kps_for_guidance.npy"),
+            {"mano_2d_kps": kps}, allow_pickle=True)
+    np.save(os.path.join(dirs["hamer_out_dir"], "J_regressor_hamer.npy"),
+            mano.j_regressor.numpy())
+    return dirs

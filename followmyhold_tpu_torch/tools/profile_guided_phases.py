@@ -22,7 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 from followmyhold_tpu_torch.configs.guidance import OptimizationConfig, guidance_mesh_caps
 from followmyhold_tpu_torch.diffusion.guidance import GuidedSampler, init_pose
 from followmyhold_tpu_torch.geometry.hunyuan import build_models
-from followmyhold_tpu_torch.models.hunyuan import DIT_TINY, VAE_FULL
+from followmyhold_tpu_torch.models.hunyuan import COND_TINY, DIT_TINY, VAE_FULL
 from followmyhold_tpu_torch.ops import _kernels
 from followmyhold_tpu_torch.tools._scene import hand_scene
 
@@ -60,7 +60,7 @@ def main() -> None:
 
     dev = torch.device("cuda:0")
     print(torch.cuda.get_device_name(0))
-    dit, vae = build_models(DIT_TINY, VAE_FULL, seed=0, device=dev)
+    dit, vae, _ = build_models(DIT_TINY, VAE_FULL, COND_TINY, seed=0, device=dev)
     _, _, camera, targets = hand_scene(dev)
     config = OptimizationConfig(optimization_steps_scale=args.iters,
                                 optimization_steps_joint=args.iters)

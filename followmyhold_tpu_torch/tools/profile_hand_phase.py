@@ -29,7 +29,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from followmyhold_tpu_torch.configs.guidance import OptimizationConfig
 from followmyhold_tpu_torch.diffusion.guidance import GuidedSampler, init_pose
 from followmyhold_tpu_torch.geometry.hunyuan import build_models
-from followmyhold_tpu_torch.models.hunyuan import DIT_TINY, VAE_TINY
+from followmyhold_tpu_torch.models.hunyuan import COND_TINY, DIT_TINY, VAE_TINY
 from followmyhold_tpu_torch.tools._scene import hand_scene
 
 
@@ -70,7 +70,7 @@ def main() -> None:
     args = parser.parse_args()
 
     dev = torch.device("cuda:0")
-    dit, vae = build_models(DIT_TINY, VAE_TINY, device=dev)
+    dit, vae, _ = build_models(DIT_TINY, VAE_TINY, COND_TINY, device=dev)
     _, _, camera, targets = hand_scene(dev)
     config = OptimizationConfig(optimization_steps_hand=args.iters,
                                 optimization_steps_scale=0, optimization_steps_joint=0)

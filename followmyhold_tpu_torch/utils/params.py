@@ -4,6 +4,7 @@ and a seeded random initialisation for full-size models on the device.
 The port's modules keep the Flax modules' names, so the bridge is mechanical:
 
 - ``Dense`` ``kernel [in,out]`` -> ``Linear.weight [out,in]``; ``bias`` as is;
+- ``Conv`` ``kernel [kh,kw,in,out]`` (HWIO) -> ``Conv2d.weight [out,in,kh,kw]``;
 - ``LayerNorm`` / ``RMSNorm`` ``scale`` -> ``weight``; ``bias`` as is;
 - a scan-stacked block (``<name>/block/...`` with a leading depth axis) ->
   ``<name>.<i>....``, one module per layer.
@@ -54,7 +55,10 @@ def flax_to_torch(params: Mapping, module: nn.Module) -> nn.Module:
     for path, value in _flatten(params).items():
         *scope, leaf = path
         depth_at = scope.index("block") if "block" in scope else None
-        if leaf == "kernel":
+        if leaf == "kernel" and value.ndim == 4 and depth_at is None:
+            leaf = "weight"          # conv: HWIO -> OIHW
+            value = np.transpose(value, (3, 2, 0, 1))
+        elif leaf == "kernel":
             leaf = "weight"
             value = np.swapaxes(value, -1, -2)
         elif leaf == "scale":
@@ -89,3 +93,24 @@ def init_random_(module: nn.Module, seed: int = 0) -> nn.Module:
             else:
                 p.fill_(1.0)
     return module
+
+
+def scheduler_config(name: str = "hunyuan_scheduler") -> dict:
+    """The checkpoint's scheduler config (``<assets>/params/<name>.json``, e.g.
+    {"shift": 1.0}), or {} without one."""
+    import json
+    import os
+
+    from followmyhold_tpu_torch.configs.paths import assets_root
+
+    path = os.path.join(assets_root(), "params", f"{name}.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            return json.load(f)
+    return {}
+
+
+def scheduler_shift() -> float:
+    """The checkpoint's sigma shift (1.0 without a config): the original
+    pipeline applies it to the explicitly passed linspace(0, 1) sigmas too."""
+    return float(scheduler_config().get("shift", 1.0))

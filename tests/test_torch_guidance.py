@@ -207,9 +207,27 @@ def test_entry_points_need_an_existing_device(both_runs):
 
 
 def test_export_above_the_device_limit_is_refused(both_runs):
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        both_runs["tsampler"].export_meshes(both_runs["t"], both_runs["ttargets"],
-                                            octree_resolution=384, device="cpu")
+    """Above ``device_res_limit`` the export is no longer refused: it takes the
+    two-level decode and the host's exact-shape marching tets, whose surface
+    is the dense decode's wherever the selected cells fit their cap."""
+    from followmyhold_tpu_torch.models.hunyuan import vae_query_logits
+    from followmyhold_tpu_torch.ops.grid import generate_dense_grid_points
+    from followmyhold_tpu_torch.ops.surface import marching_tets_host
+
+    sampler, t = both_runs["tsampler"], both_runs["t"]
+    mesh, _ = sampler.export_meshes(t, both_runs["ttargets"], octree_resolution=RES,
+                                    device_res_limit=RES // 2, device="cpu")
+    xyz, _, _ = generate_dense_grid_points([-sampler.box_v] * 3, [sampler.box_v] * 3, RES,
+                                           device="cpu")
+    with torch.no_grad():
+        dense = -vae_query_logits(sampler.vae, t.latents, xyz[None])[0]
+    want_v, want_f = marching_tets_host(dense.numpy(), [-sampler.box_v] * 3,
+                                        [sampler.box_v] * 3, RES)
+    assert len(want_f) > 0
+    assert mesh.faces.shape[0] == len(want_f) and mesh.num_faces == len(want_f)
+    np.testing.assert_array_equal(mesh.faces.numpy(), want_f)
+    posed = both_runs["tmesh"]   # the dense device export, posed: the same surface
+    assert posed.num_faces == len(want_f)
 
 
 def test_plain_sampling_pipeline_matches(both_runs):

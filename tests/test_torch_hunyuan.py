@@ -154,9 +154,10 @@ def test_random_init_is_seeded_and_well_scaled():
 def test_build_models_needs_an_existing_device_and_freezes_weights():
     from followmyhold_tpu_torch.geometry.hunyuan import build_models
 
-    dit, vae = build_models(TH.DIT_TINY, TH.VAE_TINY, device="cpu")
+    dit, vae, cond = build_models(TH.DIT_TINY, TH.VAE_TINY, TH.COND_TINY, device="cpu")
     assert not dit.training and not any(p.requires_grad for p in vae.parameters())
-    assert dit.cfg is TH.DIT_TINY and vae.cfg is TH.VAE_TINY
+    assert not cond.training and not any(p.requires_grad for p in cond.parameters())
+    assert dit.cfg is TH.DIT_TINY and vae.cfg is TH.VAE_TINY and cond.cfg is TH.COND_TINY
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            build_models(TH.DIT_TINY, TH.VAE_TINY)
+            build_models(TH.DIT_TINY, TH.VAE_TINY, TH.COND_TINY)
