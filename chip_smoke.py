@@ -17,7 +17,18 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             Also the deterministic scatter-add behind every gather's gradient
             (ops/indexing.scatter_rows_add): no host sync, same bits in two
             calls, timed beside the atomic index_add_ it replaced.
-4. main     the guidance stage on one image, as a user runs it: guidance/run.py's
+4. stages   stages 5-8 on two synthetic HOI crops (write_stage_inputs' hoi_ids; a
+            left and a right hand), as a user runs them, with the full-width models:
+            geometry/hunyuan.run (both images in one batch through 30 CFG DiT steps,
+            K1 at [4,16,4442,128]; each through the 384^3 export and the
+            post-processing; the field's logit level set for this stage's latents,
+            see _stage5_level), hand/hamer.run (ViT-H HaMeR, bf16, with the overlay
+            through K3), alignment/h2m.run and alignment/mano.run. The launch counts
+            are set to 0 just before and read just after; it prints s per image split
+            by part and the ICP's host synchronisations, holds K3 against its plain
+            version on the overlay's render, and feeds image 0's files to
+            guidance/run.build_targets.
+5. main     the guidance stage on one image, as a user runs it: guidance/run.py's
             run_hunyuan_w_guid on synthetic artifacts (a 512^2 crop, masks, a 384x512
             MoGe grid mesh, the synthetic hand, keypoints), with the full-width
             Hunyuan3D-2 DiT, ShapeVAE and DINOv2-G conditioner on seeded random
@@ -33,7 +44,9 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             tets on the host), floaters, degenerate faces, face reduction, and the
             two PLYs. The kernels' launch counts are set to 0 just before the stage
             and read just after; it prints s per image split by part.
-5. result   a `kernels` JSON line, the nvidia-smi line, and the `ok` JSON line.
+6. result   a `kernels` JSON line (`launches`: the guidance stage's run;
+            `launches_stages_5_8`: the run of stages 5-8), the nvidia-smi line, and the
+            `ok` JSON line.
 
 Tolerances, and why:
 - flash attention O (bf16): 1e-2 * max|ref| + 1e-3. The kernel rounds the
@@ -75,10 +88,10 @@ Tolerances, and why:
   agree, w1, w2 to 1e-5 and vis to 1e-4 (the visibility product is taken in
   another order). The counts of pixels that differ are printed. The chunk
   plan that the kernels run on must equal its plain version. Checked at the
-  hand and the object shape, forward and backward: two calls give the same
-  bits, and the checked call follows a call on other inputs of the same
-  shapes, so a pixel or a dgeom column the kernels leave unwritten holds
-  another value.
+  hand, object and MoGe shapes and on stage 6's overlay, forward and
+  backward: two calls give the same bits, and the checked call follows a call
+  on other inputs of the same shapes, so a pixel or a dgeom column the
+  kernels leave unwritten holds another value.
 - rasterizer backward: 2e-2 * max|ref| against autograd of the plain version
   (the tolerance of the reference's own kernel test), and all but 1 % of the
   entries within 1e-4 * max|ref|. Nearly every entry agrees to summation order.
@@ -159,6 +172,7 @@ def check_flash_attention(dev) -> dict:
         ("vae_self", 1, 16, 3072, 3072, 64),
         ("geo_cross", 4, 16, 8192, 3072, 64),
         ("dit_joint", 2, 16, 4442, 4442, 128),
+        ("dit_batch", 4, 16, 4442, 4442, 128),   # the Hunyuan stage: two images with CFG
         ("cond_self", 1, 24, 1370, 1370, 64),  # DINOv2-G's 40 self-attentions (ragged)
         ("ragged", 1, 16, 3000, 2900, 64),   # the kv mask, zero-filled rows, rows past N
         ("d80", 1, 16, 1024, 1024, 80),      # head sizes padded to 128 by the wrapper
@@ -827,8 +841,6 @@ def _shape_field(dev, dit, vae, cond_main, uncond_main) -> dict:
     unguided 20-step run from the stage's own initial noise and condition.
     All of it is seeded, so every run of the script gets the same weights."""
     from followmyhold_tpu_torch.diffusion.pipeline import denoise_latents
-    from followmyhold_tpu_torch.models.hunyuan import vae_query_logits
-    from followmyhold_tpu_torch.ops.grid import generate_dense_grid_points
     from followmyhold_tpu_torch.utils.prng import SEED_GUIDANCE, stage_generator
 
     c = vae.cfg
@@ -840,27 +852,295 @@ def _shape_field(dev, dit, vae, cond_main, uncond_main) -> dict:
                         device=dev)
     lat = denoise_latents(dit, cond_main, uncond_main, shape[1:], num_inference_steps=20,
                           guidance_scale=5.0, initial_noise=noise, device=dev)
-    xyz, _, _ = generate_dense_grid_points([-1.1] * 3, [1.1] * 3, 32, device=dev)
     with torch.no_grad():
         vae.geo.query_in.weight[:, ~keep] = 0.0
         vae.geo.proj.weight.mul_(_ATTENTION_SCALE)
         vae.geo.proj.bias.mul_(_ATTENTION_SCALE)
-        g = vae_query_logits(vae, lat, xyz[None])[0].float()
-        level = torch.quantile(g, 1.0 - _INSIDE_SHARE).item()
+    g = _box_logits(dev, vae, lat)
+    level = torch.quantile(g, 1.0 - _INSIDE_SHARE).item()
+    with torch.no_grad():
         vae.geo.logit.bias -= level
     return dict(logit_shift=-level, spread=(g.max() - g.min()).item())
 
 
+def _box_logits(dev, vae, lat) -> torch.Tensor:
+    """The field's logits on a 33^3 grid over the box, for each latents of the
+    batch lat: [B, 33^3] float32."""
+    from followmyhold_tpu_torch.models.hunyuan import vae_query_logits
+    from followmyhold_tpu_torch.ops.grid import generate_dense_grid_points
+
+    xyz, _, _ = generate_dense_grid_points([-1.1] * 3, [1.1] * 3, 32, device=dev)
+    with torch.no_grad():
+        return torch.stack([vae_query_logits(vae, lat[b:b + 1], xyz[None])[0].float()
+                            for b in range(lat.shape[0])])
+
+
 def _timed(fn, record: dict, key: str):
-    """fn, with its synchronized wall time added to record[key]."""
+    """fn, with the synchronized wall time of each call appended to record[key]."""
     def wrapped(*args, **kwargs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
         torch.cuda.synchronize()
-        record[key] = record.get(key, 0.0) + time.perf_counter() - t0
+        record.setdefault(key, []).append(time.perf_counter() - t0)
         return out
     return wrapped
+
+
+HOI_IDS = (IMAGE_ID, "000002")
+
+
+def _count_syncs(fn) -> int:
+    """How often fn synchronises the host with the device (torch's sync debug
+    mode warns once per synchronising call)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def _stage5_level(dev, models, image_dir: str) -> dict:
+    """The logit level that puts _INSIDE_SHARE of the box inside at the
+    latents stage 5 reaches for HOI_IDS (30 CFG steps at 7.5 from the stage's
+    own noise and conditions: another field level than the guidance stage's
+    20 steps at 5.0, which _shape_field calibrates, and the export of the
+    guidance-shaped field held no surface there). The stage runs with the
+    logit bias moved by it; every other weight is the guidance stage's."""
+    from PIL import Image
+
+    from followmyhold_tpu_torch.diffusion.pipeline import denoise_latents
+    from followmyhold_tpu_torch.geometry.hunyuan import encode_condition, white_to_alpha
+    from followmyhold_tpu_torch.utils.prng import SEED_HUNYUAN, stage_generator
+
+    dit, vae, cond = models
+    shape = (1, vae.cfg.num_latents, vae.cfg.embed_dim)
+    conds, unconds, noise = [], [], []
+    for k, image_id in enumerate(HOI_IDS):
+        rgb = np.asarray(Image.open(os.path.join(image_dir, f"{image_id}_cropped_hoi_{k % 2}.png"))
+                         .convert("RGB"))
+        c, u = encode_condition(cond, white_to_alpha(rgb), device=dev)
+        conds.append(c[0])
+        unconds.append(u[0])
+        noise.append(torch.randn(shape, generator=stage_generator(SEED_HUNYUAN, "hunyuan",
+                                                                  image_id, dev), device=dev))
+    lat = denoise_latents(dit, torch.stack(conds), torch.stack(unconds), shape[1:],
+                          num_inference_steps=30, guidance_scale=7.5,
+                          initial_noise=torch.cat(noise), device=dev)
+    g = _box_logits(dev, vae, lat)
+    level = torch.quantile(g.flatten(), 1.0 - _INSIDE_SHARE).item()
+    shares = (g > level).float().mean(dim=1).tolist()
+    say(f"hoi: stage 5's field level {level:.4f} (the guidance-shaped field's logits over the "
+        f"box span {g.min().item():.4f} to {g.max().item():.4f}); inside shares then "
+        f"{[round(x, 4) for x in shares]}")
+    if min(shares) <= 0.0:
+        fail(f"stage 5's field has no surface for one of {HOI_IDS}: inside shares {shares}")
+    return dict(level=level, inside_shares=shares)
+
+
+def run_hoi_stages(dev, models, d: dict, root: str) -> dict:
+    """Stages 5-8 as a user runs them, on the two HOI crops of HOI_IDS
+    (write_stage_inputs; image 0 a left hand, image 1 a right one):
+    geometry/hunyuan.run on both in one batch with the full-width models
+    (the DiT at [4, ...] with CFG, K1 at [4,16,4442,128]), each through the
+    384^3 export and the post-processing; hand/hamer.run with the full-width
+    HaMeR (ViT-H, bf16) and the overlay (K3); alignment/h2m.run against the
+    synthetic MoGe meshes and alignment/mano.run. The kernels' counts are set
+    to 0 just before and read just after. Then the checks, K3 held against
+    its plain version on the overlay's render, ICP's host synchronisations
+    counted, and guidance/run.build_targets on image 0's files."""
+    from followmyhold_tpu_torch.alignment import h2m, mano as mano_align, mesh_align
+    from followmyhold_tpu_torch.diffusion import pipeline
+    from followmyhold_tpu_torch.geometry import hunyuan as hoi
+    from followmyhold_tpu_torch.guidance import run as stage
+    from followmyhold_tpu_torch.hand import hamer as hand
+    from followmyhold_tpu_torch.models.hunyuan import COND_FULL, DIT_FULL
+    from followmyhold_tpu_torch.ops import _kernels
+    from followmyhold_tpu_torch.ops import rasterizer as R
+    from followmyhold_tpu_torch.ops.camera import GuidanceCamera
+    from followmyhold_tpu_torch.ops.icp import icp, procrustes, sample_surface
+    from followmyhold_tpu_torch.utils.mesh_io import load_mesh
+
+    out = {k: os.path.join(root, "stages", k) for k in (
+        "hunyuan_hoi_mesh_dir", "hamer_out_dir", "h2m_rt_dir", "aligned_mano_dir")}
+    t0 = time.perf_counter()
+    hamer_model = hand._build_model(hand._default_config(), device=dev)
+    torch.cuda.synchronize()
+    n_hamer = sum(p.numel() for p in hamer_model.parameters()) / 1e9
+    say(f"hoi: built HaMeR at full width (ViT-H + head, {n_hamer:.3f} billion parameters, "
+        f"bf16) in {time.perf_counter() - t0:.1f} s")
+
+    level5 = _stage5_level(dev, models, d["cropped_hoi_wo_bckg_dir"])
+    vae = models[1]
+    bias = vae.geo.logit.bias.detach().clone()
+
+    calls = {}
+
+    patched = [(hoi, "encode_condition", "conditioner"), (hoi, "denoise_latents", "dit_loop"),
+               (pipeline, "hierarchical_export_logits", "export_decode"),
+               (pipeline, "marching_tets_host", "host_extraction"),
+               (hoi, "remove_floaters", "postprocess"),
+               (hoi, "remove_degenerate_faces", "postprocess"),
+               (hoi, "reduce_faces", "postprocess"), (hand, "generate_patch_image", "crop"),
+               (hand, "hamer_forward", "forward"), (hand, "render_overlay", "overlay"),
+               (mesh_align, "_sample", "icp_sampling")]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    icp_orig = mesh_align.icp
+
+    stage_s, counts = {}, {}
+    try:
+        with torch.no_grad():
+            vae.geo.logit.bias -= level5["level"]
+        for (mod, name, key), (_, _, fn) in zip(patched, originals):
+            setattr(mod, name, _timed(fn, calls, key))
+        mesh_align.icp = _timed(icp_orig, calls, "icp")
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        for tag, fn in (
+                ("stage5", lambda: hoi.run(d["cropped_hoi_wo_bckg_dir"],
+                                           out["hunyuan_hoi_mesh_dir"], models=models,
+                                           device=dev)),
+                ("stage6", lambda: hand.run(d["cropped_hoi_dir"], out["hamer_out_dir"],
+                                            mask_dir=d["mask_dir"], save_overlay=True,
+                                            model=hamer_model, device=dev)),
+                ("stage7", lambda: h2m.run(out["hunyuan_hoi_mesh_dir"], d["moge_out_dir"],
+                                           out["h2m_rt_dir"], device=dev)),
+                ("stage8", lambda: mano_align.run(out["hamer_out_dir"],
+                                                  out["hunyuan_hoi_mesh_dir"],
+                                                  out["aligned_mano_dir"], device=dev))):
+            before = _kernels.launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            stage_s[tag] = time.perf_counter() - t
+            counts[tag] = {k: v - before[k] for k, v in _kernels.launch_counts().items()}
+            if tag == "stage5":
+                for image_id in HOI_IDS:
+                    mesh = load_mesh(os.path.join(out["hunyuan_hoi_mesh_dir"],
+                                                  f"{image_id}_hoi_mesh.ply"))
+                    if not (mesh.num_faces > 0 and np.isfinite(mesh.vertices).all()):
+                        fail(f"stage 5: {image_id}_hoi_mesh.ply is empty or not finite")
+        launches = _kernels.launch_counts()
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+        mesh_align.icp = icp_orig
+        with torch.no_grad():
+            vae.geo.logit.bias.copy_(bias)
+    n = len(HOI_IDS)
+    secs = {key: sum(calls.get(key, [0.0])) for _, _, key in patched}
+    icp_secs = calls["icp"]
+
+    def each(key):
+        return ", ".join(f"{x:.4f}" for x in calls[key])
+
+    say(f"hoi: stage 5 (Hunyuan HOI mesh, {n} images in one batch) {stage_s['stage5']:.2f} s, "
+        f"{stage_s['stage5'] / n:.2f} s per image: conditioner {secs['conditioner'] / n:.4f}, "
+        f"DiT loop (30 steps at batch {2 * n}) {secs['dit_loop'] / n:.3f}, export decode "
+        f"{secs['export_decode'] / n:.3f}, host extraction {secs['host_extraction'] / n:.3f}, "
+        f"post-processing {secs['postprocess'] / n:.3f} s per image")
+    say(f"hoi: stage 6 (HaMeR) {stage_s['stage6']:.3f} s, {stage_s['stage6'] / n:.3f} s per "
+        f"image: crop {secs['crop'] / n:.4f}, forward {secs['forward'] / n:.4f}, overlay "
+        f"{secs['overlay'] / n:.4f} s per image (each call: crop {each('crop')}, forward "
+        f"{each('forward')}, overlay {each('overlay')} s; the first pays one-time set-up)")
+    coarse, fine = icp_secs[0::2], icp_secs[1::2]
+    say(f"hoi: stage 7 (Hunyuan -> MoGe ICP) {stage_s['stage7']:.3f} s, stage 8 (MANO -> "
+        f"Hunyuan ICP) {stage_s['stage8']:.3f} s; per alignment: coarse phase (50 iterations, "
+        f"1k/5k) {', '.join(f'{x:.3f}' for x in coarse)} s, fine phase (100 iterations, "
+        f"5k/10k) {', '.join(f'{x:.3f}' for x in fine)} s, surface sampling "
+        f"{secs['icp_sampling'] / len(coarse):.3f} s per alignment")
+    say(f"hoi: launches per stage {counts}")
+
+    # ---- checks -------------------------------------------------------------- #
+    for image_id in HOI_IDS:
+        res = np.load(os.path.join(out["hamer_out_dir"], f"{image_id}.npy"),
+                      allow_pickle=True).item()
+        kps = np.load(os.path.join(out["hamer_out_dir"], f"{image_id}_kps_for_guidance.npy"),
+                      allow_pickle=True).item()
+        if sorted(res) != sorted(hand._STACK_KEYS) or sorted(kps) != [
+                "cam_t", "mano_2d_kps", "mano_3d_kps"]:
+            fail(f"stage 6: {image_id}'s arrays have the keys {sorted(res)}, {sorted(kps)}")
+        if not all(np.isfinite(np.asarray(v, np.float64)).all()
+                   for v in (*res.values(), *kps.values())):
+            fail(f"stage 6: {image_id}'s arrays are not finite")
+        if not (res["pred_cam_t_full"][0, 2] > 0 and res["right"][0] == float(
+                HOI_IDS.index(image_id) % 2 == 1)):
+            fail(f"stage 6: {image_id}'s hand is behind the camera or on the wrong side")
+        obj = load_mesh(os.path.join(out["hamer_out_dir"], f"{image_id}_hamer.obj"))
+        over_path = os.path.join(out["hamer_out_dir"], f"{image_id}_overlay.png")
+        if not (obj.num_vertices == 778 and os.path.exists(over_path)):
+            fail(f"stage 6: {image_id}_hamer.obj has {obj.num_vertices} vertices or the overlay "
+                 f"is missing")
+        t_h2m = np.load(os.path.join(out["h2m_rt_dir"], f"{image_id}_hoi_mesh.npy"))
+        if not (t_h2m.shape == (4, 4) and np.isfinite(t_h2m).all()
+                and np.array_equal(t_h2m[3], [0, 0, 0, 1])):
+            fail(f"stage 7: {image_id}_hoi_mesh.npy is not a finite transform: {t_h2m}")
+        aligned = load_mesh(os.path.join(out["aligned_mano_dir"],
+                                         f"{image_id}_hamer_aligned_mano.ply"))
+        if not (aligned.num_vertices == 778 and np.isfinite(aligned.vertices).all()):
+            fail(f"stage 8: {image_id}'s aligned MANO has {aligned.num_vertices} vertices or is "
+                 f"not finite")
+    n_blocks = DIT_FULL.depth_double + DIT_FULL.depth_single
+    if counts["stage5"]["flash_attention_fwd"] < n_blocks * 30 + n * COND_FULL.depth:
+        fail(f"stage 5 launched K1 {counts['stage5']['flash_attention_fwd']} times, expected at "
+             f"least {n_blocks * 30 + n * COND_FULL.depth}")
+    if counts["stage6"]["raster_fwd"] < n or counts["stage6"]["raster_chunk_plan"] < n:
+        fail(f"stage 6 launched K3 {counts['stage6']['raster_fwd']} times for {n} overlays")
+
+    # K3 against its plain version on image 0's overlay render
+    img0 = HOI_IDS[0]
+    hand_mask = stage._load_mask(os.path.join(d["mask_dir"], f"{img0}_cropped_hand_mask.png"))
+    frame_hw = hand_mask.shape
+    cfg = hamer_model.cfg
+    res = np.load(os.path.join(out["hamer_out_dir"], f"{img0}.npy"), allow_pickle=True).item()
+    faces = np.asarray(load_mesh(os.path.join(out["hamer_out_dir"], f"{img0}_hamer.obj")).faces)
+    hands = [{"pred_vertices": res["pred_vertices"][0],
+              "pred_cam_t_full": res["pred_cam_t_full"][0]}]
+    camera, verts, fcs, _ = hand.overlay_scene(
+        hands, faces, frame_hw, cfg.focal_length / cfg.image_size * max(frame_hw), dev)
+    packed = _tile_inputs(camera, verts, fcs, hand.overlay_faces_per_tile(fcs.shape[0]))
+    fwd_ov, bwd_ov, _, got = _check_raster_shape(R, "overlay", packed,
+                                                 torch.Generator(device=dev).manual_seed(13))
+    covered = int((got[2] >= 0).sum().item())
+    if covered == 0:
+        fail("the overlay render covers no pixel")
+    say(f"hoi: the overlay of {img0} covers {covered} pixels")
+
+    # ICP's host synchronisations (torch.linalg.svd of the 3x3 covariance)
+    target = load_mesh(os.path.join(out["hunyuan_hoi_mesh_dir"], f"{img0}_hoi_mesh.ply"))
+    src = torch.from_numpy(sample_surface(target.vertices, target.faces, 5000, 0)).to(dev)
+    tgt = torch.from_numpy(sample_surface(target.vertices, target.faces, 10000, 1)).to(dev)
+    syncs = {"procrustes": _count_syncs(lambda: procrustes(src, tgt[:5000])),
+             "icp_iteration": _count_syncs(lambda: icp(src, tgt, n_iter=1, outliers=0.2)),
+             "icp_10_iterations": _count_syncs(lambda: icp(src, tgt, n_iter=10, outliers=0.2))}
+    say(f"hoi: host synchronisations: {syncs}")
+
+    # the guidance stage's targets from image 0's files of these stages
+    targets = stage.build_targets(
+        GuidanceCamera(height=frame_hw[0], width=frame_hw[1], fov_deg=60.0),
+        os.path.join(out["aligned_mano_dir"], f"{img0}_hamer_aligned_mano.ply"),
+        os.path.join(out["h2m_rt_dir"], f"{img0}_hoi_mesh.npy"),
+        os.path.join(d["moge_out_dir"], f"{img0}_cropped_hoi", "mesh.ply"), hand_mask,
+        stage._load_mask(os.path.join(d["mask_dir"], f"{img0}_cropped_obj_mask.png")),
+        os.path.join(out["hamer_out_dir"], f"{img0}_kps_for_guidance.npy"),
+        np.load(os.path.join(out["hamer_out_dir"], "J_regressor_hamer.npy")), device=dev)
+    if not (targets.mano_verts_moge.shape == (778, 3) and targets.hamer_2d_kps.shape == (21, 2)
+            and all(torch.isfinite(x).all() for x in (
+                targets.mano_verts_moge, targets.hamer_2d_kps, targets.moge_normal,
+                targets.moge_disp, targets.t_h2m))):
+        fail("build_targets on the files of stages 5-8 gave wrong shapes or non-finite values")
+    say(f"hoi: build_targets accepts {img0}'s files of stages 5-8 (MANO in MoGe space centred "
+        f"at {targets.mano_verts_moge.mean(0).tolist()})")
+    return dict(launches=launches, launches_per_stage=counts, seconds=stage_s, calls=calls,
+                syncs=syncs, field=level5,
+                raster_overlay=(fwd_ov, bwd_ov))
 
 
 def run_stage(dev) -> dict:
@@ -912,7 +1192,8 @@ def run_stage(dev) -> dict:
         f"parameters) in {time.perf_counter() - t0:.1f} s")
 
     root = tempfile.mkdtemp(prefix="fmh_stage_")
-    d = write_stage_inputs(root, image_id=IMAGE_ID, size=512, moge_grid=(384, 512))
+    d = write_stage_inputs(root, image_id=IMAGE_ID, size=512, moge_grid=(384, 512),
+                           hoi_ids=HOI_IDS)
     crop = os.path.join(d["cropped_obj_img_dir"], f"{IMAGE_ID}_cropped_inpainted.png")
     rgba = np.asarray(Image.open(crop).convert("RGBA"))
 
@@ -934,6 +1215,7 @@ def run_stage(dev) -> dict:
     field = _shape_field(dev, dit, vae, tokens, uncond)
     say(f"main: shaped the random-weight field (lowest Fourier frequency; logit shift "
         f"{field['logit_shift']:.4f}, spread {field['spread']:.4f} over the box)")
+    hoi = run_hoi_stages(dev, (dit, vae, cond), d, root)
 
     # the two reduced runs on the stage's own targets
     camera = GuidanceCamera(height=512, width=512, fov_deg=60.0)
@@ -959,7 +1241,7 @@ def run_stage(dev) -> dict:
     del targets
 
     # ---- the main path: one image through the stage ---------------------- #
-    secs, kept = {}, {}
+    calls, kept = {}, {}
     originals = {name: getattr(stage, name) for name in (
         "build_targets", "encode_condition", "remove_floaters", "remove_degenerate_faces",
         "reduce_faces")}
@@ -970,49 +1252,49 @@ def run_stage(dev) -> dict:
 
     def encode(*a, **k):
         before = _kernels.LAUNCH_COUNTS["flash_attention_fwd"]
-        out = _timed(originals["encode_condition"], secs, "conditioner")(*a, **k)
+        out = _timed(originals["encode_condition"], calls, "conditioner")(*a, **k)
         kept["conditioner_k1"] = _kernels.LAUNCH_COUNTS["flash_attention_fwd"] - before
         kept["cond"] = torch.cat(out, dim=0)
         return out
 
     def sampler_run(self, *a, **k):
         kept["sampler"] = self
-        kept["result"] = _timed(run_orig, secs, "sampler")(self, *a, **k)
+        kept["result"] = _timed(run_orig, calls, "sampler")(self, *a, **k)
         return kept["result"]
 
     def export(self, *a, **k):
-        out = _timed(export_orig, secs, "export")(self, *a, **k)
+        out = _timed(export_orig, calls, "export")(self, *a, **k)
         kept["faces_exported"] = int(out[0].num_faces)
         return out
 
     def decode(*a, **k):
-        out = _timed(decode_orig, secs, "export_decode")(*a, **k)
+        out = _timed(decode_orig, calls, "export_decode")(*a, **k)
         kept["export"] = dict(g_c=out[0].cpu().numpy(), pt_ids=out[1].cpu().numpy(),
                               n_selected=out[3], n_points=out[4])
         return out
 
     def counted(name):
         def fn(verts, faces, *a, **k):
-            out = _timed(originals[name], secs, name)(verts, faces, *a, **k)
+            out = _timed(originals[name], calls, name)(verts, faces, *a, **k)
             kept[f"faces_after_{name}"] = len(out[1])
             return out
         return fn
 
     def reduce(verts, faces, *a, **k):
         kept["faces_before_reduce"] = len(faces)
-        out = _timed(originals["reduce_faces"], secs, "reduce_faces")(verts, faces, *a, **k)
+        out = _timed(originals["reduce_faces"], calls, "reduce_faces")(verts, faces, *a, **k)
         kept["faces_after_reduce"] = len(out[1])
         return out
 
-    stage.build_targets = _timed(originals["build_targets"], secs, "build_targets")
+    stage.build_targets = _timed(originals["build_targets"], calls, "build_targets")
     stage.encode_condition = encode
     stage.remove_floaters = counted("remove_floaters")
     stage.remove_degenerate_faces = counted("remove_degenerate_faces")
     stage.reduce_faces = reduce
     GuidedSampler.run, GuidedSampler.export_meshes = sampler_run, export
     hunyuan.vae_query_logits_hierarchical = decode
-    hunyuan.compose_hierarchical_grid = _timed(compose_orig, secs, "export_compose")
-    guidance.marching_tets_host = _timed(extract_orig, secs, "host_extraction")
+    hunyuan.compose_hierarchical_grid = _timed(compose_orig, calls, "export_compose")
+    guidance.marching_tets_host = _timed(extract_orig, calls, "host_extraction")
     config = OptimizationConfig()
     try:
         torch.cuda.synchronize()
@@ -1032,6 +1314,7 @@ def run_stage(dev) -> dict:
         hunyuan.compose_hierarchical_grid = compose_orig
         guidance.marching_tets_host = extract_orig
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    secs = {key: sum(times) for key, times in calls.items()}
     result, sampler, ex = kept["result"], kept["sampler"], kept["export"]
 
     # ---- what the stage reports ------------------------------------------ #
@@ -1139,7 +1422,7 @@ def run_stage(dev) -> dict:
         fail(f"scatter_rows_add launched {launches['scatter_rows_add']} times, expected at "
              f"least {2 * (want_raster - 1)}")
     shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return dict(launches=launches, hoi=hoi)
 
 
 def main() -> None:
@@ -1176,11 +1459,17 @@ def main() -> None:
 
     kernels = [check_flash_attention(dev), check_flash_attention_backward(dev),
                *check_rasterizer(dev)]
-    launches = {k["name"]: 0 for k in kernels}
+    launches = launches_hoi = {k["name"]: 0 for k in kernels}
     if not args.kernels_only:
-        launches = run_stage(dev)
+        ran = run_stage(dev)
+        launches, hoi = ran["launches"], ran["hoi"]
+        launches_hoi = hoi["launches"]
+        for k, overlay in zip(kernels[-3:-1], hoi["raster_overlay"]):
+            k["overlay_mesh"] = overlay
     for k in kernels:
+        # launches: the guidance stage's; launches_stages_5_8: the run of stages 5-8
         k["launches"] = launches[k["name"]]
+        k["launches_stages_5_8"] = launches_hoi[k["name"]]
 
     say(json.dumps({"kernels": kernels}))
     say(smi)

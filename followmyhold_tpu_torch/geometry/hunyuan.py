@@ -1,20 +1,37 @@
-"""Model construction and image conditioning for the Hunyuan shape stage.
+"""The Hunyuan HOI mesh stage (un-guided shape generation), and the model
+construction and image conditioning that the guidance stage shares.
 
-Counterpart of ``build_models`` and ``encode_condition`` in
-followmyhold_tpu/geometry/hunyuan.py. No checkpoint exists offline, so the
-models carry seeded random weights, as the reference's do without a
-checkpoint. ``FOHO_TPU_PROFILE=tiny`` picks the reference's tiny
-configurations where no configuration is given.
+Counterpart of followmyhold_tpu/geometry/hunyuan.py. ``run`` takes every HOI
+crop ({id}_cropped_hoi_*.png, pure white as transparent) through the plain
+flow-matching pipeline (30 CFG steps) in batches of up to 5 images, each with
+its own noise stream, then each image through the 384^3 export, floater and
+degenerate-face removal and face reduction, to {id}_hoi_mesh.ply. No
+checkpoint exists offline, so the models carry seeded random weights, as the
+reference's do without a checkpoint. ``FOHO_TPU_PROFILE=tiny`` picks the
+reference's tiny configurations where no configuration is given.
+
+    python -m followmyhold_tpu_torch.geometry.hunyuan --image_dir ... --save_dir ... \
+        [--device cuda]
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import argparse
+import glob
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from PIL import Image
 
-from followmyhold_tpu_torch.configs.profiles import is_tiny
+from followmyhold_tpu_torch.configs.profiles import hunyuan_octree_resolution, is_tiny
+from followmyhold_tpu_torch.diffusion.pipeline import denoise_latents, latents_to_mesh
+from followmyhold_tpu_torch.geometry.postprocess import (
+    reduce_faces,
+    remove_degenerate_faces,
+    remove_floaters,
+)
 from followmyhold_tpu_torch.models.hunyuan import (
     COND_FULL,
     COND_TINY,
@@ -29,7 +46,12 @@ from followmyhold_tpu_torch.models.hunyuan import (
     ShapeVAEConfig,
 )
 from followmyhold_tpu_torch.utils.device import DeviceLike, resolve_device
-from followmyhold_tpu_torch.utils.params import init_random_
+from followmyhold_tpu_torch.utils.mesh_io import write_ply
+from followmyhold_tpu_torch.utils.params import init_random_, scheduler_shift as _ckpt_shift
+from followmyhold_tpu_torch.utils.prng import SEED_HUNYUAN, stage_generator
+
+# images per batch of the denoising loop, as the reference batches them
+BATCH = 5
 
 # the reference's tiny DiT: conditioned on COND_TINY's width, on VAE_TINY's latents
 DIT_PROFILE_TINY = DiTConfig(in_channels=VAE_TINY.embed_dim, hidden=64, heads=4,
@@ -72,3 +94,103 @@ def encode_condition(cond: Conditioner, image_rgba: np.ndarray,
     tokens = cond(rgb[None])["main"]
     uncond = cond.unconditional_embedding(1)["main"]
     return tokens, uncond
+
+
+def white_to_alpha(image_rgb: np.ndarray) -> np.ndarray:
+    """RGB [H,W,3] uint8 -> RGBA with the pure-white pixels transparent."""
+    white = np.all(image_rgb == 255, axis=-1)
+    alpha = np.where(white, 0, 255).astype(np.uint8)
+    return np.concatenate([image_rgb, alpha[..., None]], axis=-1)
+
+
+def run(
+    image_dir: str,
+    save_dir: str,
+    num_inference_steps: int = 30,
+    octree_resolution: Optional[int] = None,
+    guidance_scale: float = 7.5,
+    project_root: Optional[str] = None,      # CLI parity
+    scheduler_shift: Optional[float] = None,  # None: the checkpoint's scheduler config
+    models: Optional[Tuple[HunyuanDiT, ShapeVAE, Conditioner]] = None,
+    initial_noise: Optional[Dict[str, torch.Tensor]] = None,
+    device: DeviceLike = "cuda",
+) -> None:
+    """Every image of ``image_dir`` to {id}_hoi_mesh.ply in ``save_dir``; an
+    image whose mesh exists is skipped. ``models`` is ``build_models()``'s
+    (dit, vae, conditioner) on ``device``; ``initial_noise`` maps an image id
+    to its initial latents [1, L, E], in place of the stage generator's draw
+    (to hold the port against another run)."""
+    dev = resolve_device(device)
+    if scheduler_shift is None:
+        scheduler_shift = _ckpt_shift()
+    if octree_resolution is None:
+        octree_resolution = hunyuan_octree_resolution()
+    os.makedirs(save_dir, exist_ok=True)
+    dit, vae, cond = models if models is not None else build_models(device=dev)
+
+    images = sorted(glob.glob(os.path.join(image_dir, "*.png"))
+                    + glob.glob(os.path.join(image_dir, "*.jpg")))
+    if not images:
+        print(f"No images found in {image_dir}")
+        return
+    pending = []
+    for img_path in images:
+        image_id = os.path.basename(img_path).split("_")[0]
+        out_path = os.path.join(save_dir, f"{image_id}_hoi_mesh.ply")
+        if os.path.exists(out_path):
+            print(f"{image_id} exists, skipping")
+            continue
+        pending.append((img_path, image_id, out_path))
+
+    latent_shape = (vae.cfg.num_latents, vae.cfg.embed_dim)
+    for i in range(0, len(pending), BATCH):
+        group = pending[i:i + BATCH]
+        conds, unconds, noise = [], [], []
+        for img_path, image_id, _ in group:
+            rgba = white_to_alpha(np.asarray(Image.open(img_path).convert("RGB")))
+            cm, um = encode_condition(cond, rgba, device=dev)
+            conds.append(cm[0])
+            unconds.append(um[0])
+            if initial_noise is not None and image_id in initial_noise:
+                noise.append(initial_noise[image_id].to(dev, torch.float32).reshape(
+                    1, *latent_shape))
+            else:
+                # one stream per image: an image's mesh does not depend on its batch
+                gen = stage_generator(SEED_HUNYUAN, "hunyuan", image_id, dev)
+                noise.append(torch.randn((1, *latent_shape), generator=gen, device=dev))
+        latents = denoise_latents(
+            dit, torch.stack(conds), torch.stack(unconds), latent_shape,
+            num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+            initial_noise=torch.cat(noise), scheduler_shift=scheduler_shift, device=dev)
+
+        for b, (_, image_id, out_path) in enumerate(group):
+            mesh = latents_to_mesh(vae, latents[b:b + 1], octree_resolution=octree_resolution,
+                                   box_v=1.01, max_verts=196608, max_faces=393216, device=dev)
+            nv, nf = mesh.num_verts, mesh.num_faces
+            verts = mesh.verts[:nv].cpu().numpy()
+            faces = mesh.faces[:nf].cpu().numpy().astype(np.int32)
+            verts, faces = remove_floaters(verts, faces)
+            verts, faces = remove_degenerate_faces(verts, faces)
+            verts, faces = reduce_faces(verts, faces)
+            write_ply(out_path, verts, faces)
+            print(f"Exported {out_path} ({len(verts)} verts, {len(faces)} faces)")
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description="Hunyuan HOI mesh, un-guided")
+    parser.add_argument("--image_dir", required=True)
+    parser.add_argument("--save_dir", required=True)
+    parser.add_argument("--project_root", default=None)
+    parser.add_argument("--num_inference_steps", type=int, default=30)
+    parser.add_argument("--scheduler_shift", type=float, default=None,
+                        help="override the checkpoint scheduler_config shift")
+    parser.add_argument("--octree_resolution", type=int, default=None)
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args()
+    run(args.image_dir, args.save_dir, args.num_inference_steps, args.octree_resolution,
+        project_root=args.project_root, scheduler_shift=args.scheduler_shift,
+        device=args.device)
+
+
+if __name__ == "__main__":
+    main()

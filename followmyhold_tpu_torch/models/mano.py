@@ -1,12 +1,13 @@
-"""MANO hand model data and keypoints.
+"""MANO hand model: data, linear blend skinning and keypoints.
 
-Counterpart of followmyhold_tpu/models/mano.py, as far as the guidance stage
-needs it: the model container, the loader of the official MANO_RIGHT.pkl
-(with a tolerant unpickler, so chumpy need not be installed), the
-deterministic synthetic stand-in with the real structure (778 verts / 16
-joints / 1538 faces) that the loader falls back to, and the keypoint readout
-from an already-posed mesh. Linear blend skinning is not on the stage's path
-and is not ported yet.
+Counterpart of followmyhold_tpu/models/mano.py: the model container, the
+loader of the official MANO_RIGHT.pkl (with a tolerant unpickler, so chumpy
+need not be installed), the deterministic synthetic stand-in with the real
+structure (778 verts / 16 joints / 1538 faces) that the loader falls back to,
+the LBS forward that HaMeR poses its hand with (pose as rotation matrices,
+smplx's ``batch_rigid_transform`` along the kinematic chain), and the
+keypoint readout from an already-posed mesh. The sums run in float32 in the
+reference's order: each einsum as there, the chain in ``PARENTS`` order.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import io
 import os
 import pickle
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +26,9 @@ from followmyhold_tpu_torch.utils.device import DeviceLike, resolve_device
 NUM_VERTS = 778
 NUM_JOINTS = 16
 NUM_BETAS = 10
+
+# MANO kinematic tree (wrist, then index/middle/pinky/ring/thumb chains).
+PARENTS = (-1, 0, 1, 2, 0, 4, 5, 0, 7, 8, 0, 10, 11, 0, 13, 14)
 
 # smplx vertex_ids['mano']: thumb, index, middle, ring, pinky fingertips.
 FINGERTIP_VERTEX_IDS = (744, 320, 443, 554, 671)
@@ -40,6 +44,11 @@ class ManoModel(NamedTuple):
     j_regressor: torch.Tensor   # [16, 778]
     lbs_weights: torch.Tensor   # [778, 16]
     faces: torch.Tensor         # [1538, 3] int64
+
+
+class ManoOutput(NamedTuple):
+    vertices: torch.Tensor      # [B, 778, 3]
+    joints: torch.Tensor        # [B, 21, 3] OpenPose order
 
 
 class _ChumpyStub:
@@ -160,6 +169,63 @@ def synthetic_mano(seed: int = 0, device: DeviceLike = "cuda") -> ManoModel:
         lbs_weights=t(w.astype(np.float32)),
         faces=t(tri.astype(np.int64)),
     )
+
+
+def _rigid_transforms(rot_mats: torch.Tensor,
+                      joints: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward kinematics: rot_mats [B,16,3,3], rest joints [B,16,3] ->
+    (posed joints [B,16,3], transforms relative to the rest pose [B,16,4,4])."""
+    B = rot_mats.shape[0]
+    rel_joints = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, list(PARENTS[1:])]], dim=1)
+    last_row = rot_mats.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(B, NUM_JOINTS, 1, 4)
+    local = torch.cat([torch.cat([rot_mats, rel_joints[..., None]], dim=-1), last_row], dim=-2)
+    world = [local[:, 0]]
+    for i in range(1, NUM_JOINTS):
+        world.append(matmul_f32(world[PARENTS[i]], local[:, i]))
+    world = torch.stack(world, dim=1)                                    # [B,16,4,4]
+    posed_joints = world[:, :, :3, 3]
+    # take out the rest pose: A = T - pack(T @ [j, 0])
+    joints_h = torch.cat([joints, joints.new_zeros(B, NUM_JOINTS, 1)], dim=-1)
+    correction = torch.einsum("bjik,bjk->bji", world, joints_h.float())
+    rel = world.clone()
+    rel[:, :, :3, 3] = world[:, :, :3, 3] - correction[..., :3]
+    return posed_joints, rel
+
+
+def mano_forward(
+    model: ManoModel,
+    global_orient: torch.Tensor,       # [B,1,3,3] or [B,3,3]
+    hand_pose: torch.Tensor,           # [B,15,3,3]
+    betas: torch.Tensor,               # [B,10]
+    transl: Optional[torch.Tensor] = None,
+) -> ManoOutput:
+    """Posed vertices and the 21 OpenPose keypoints (the 16 posed joints and
+    the 5 fingertip vertices), in float32."""
+    if global_orient.dim() == 3:
+        global_orient = global_orient[:, None]
+    global_orient, hand_pose, betas = global_orient.float(), hand_pose.float(), betas.float()
+    B = betas.shape[0]
+    rot_mats = torch.cat([global_orient, hand_pose], dim=1)              # [B,16,3,3]
+
+    v_shaped = model.v_template + torch.einsum("bl,vcl->bvc", betas, model.shapedirs)
+    joints = torch.einsum("jv,bvc->bjc", model.j_regressor, v_shaped)
+    # pose blend shapes from (R - I) of the 15 hand joints
+    eye = torch.eye(3, dtype=rot_mats.dtype, device=rot_mats.device)
+    pose_feature = (hand_pose - eye).reshape(B, -1)                      # [B,135]
+    v_posed = v_shaped + torch.einsum("bp,pn->bn", pose_feature,
+                                      model.posedirs).reshape(B, NUM_VERTS, 3)
+
+    posed_joints, rel = _rigid_transforms(rot_mats, joints)
+    T = torch.einsum("vj,bjrc->bvrc", model.lbs_weights, rel)             # [B,V,4,4]
+    v_h = torch.cat([v_posed, v_posed.new_ones(B, NUM_VERTS, 1)], dim=-1)
+    verts = torch.einsum("bvrc,bvc->bvr", T, v_h)[..., :3]
+
+    tips = verts[:, list(FINGERTIP_VERTEX_IDS)]
+    joints21 = torch.cat([posed_joints, tips], dim=1)[:, list(MANO_TO_OPENPOSE)]
+    if transl is not None:
+        verts = verts + transl[:, None]
+        joints21 = joints21 + transl[:, None]
+    return ManoOutput(vertices=verts, joints=joints21)
 
 
 def mano_vert_to_3dkps(verts: torch.Tensor, j_regressor16: torch.Tensor) -> torch.Tensor:

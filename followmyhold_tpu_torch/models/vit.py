@@ -1,7 +1,11 @@
-"""Vision transformer encoder in PyTorch: the DINOv2 path of the reference.
+"""Vision transformer encoder in PyTorch: the DINOv2 path and HaMeR's ViT-H.
 
 Counterpart of followmyhold_tpu/models/vit.py, which serves HaMeR's ViT-H/16,
-MoGe's DINOv2-L/14 and the Hunyuan conditioner's DINOv2-G/14. Module and
+MoGe's DINOv2-L/14 and the Hunyuan conditioner's DINOv2-G/14. HaMeR's
+backbone (``HAMER_VIT_H``, ``ViTFeatureMap``) pads its patch convolution by
+2 px and adds the position embedding's cls slot to every patch token; its
+192 tokens at head size 80 take the plain attention, as in the reference
+(the flash path needs 256 or more). Module and
 parameter names follow the Flax modules, so ``utils.params.flax_to_torch``
 loads a Flax tree mechanically: the scan-stacked blocks (``blocks/block/...``
 with a leading depth axis) land on ``blocks.<i>``, and the patch embedding's
@@ -63,6 +67,9 @@ class ViTConfig:
     def num_patches(self) -> int:
         gh, gw = self.grid
         return gh * gw
+
+
+HAMER_VIT_H = ViTConfig(patch_padding=2, pos_embed_cls_slot=True)
 
 
 class Attention(nn.Module):
@@ -237,3 +244,20 @@ class ViT(nn.Module):
         if keep_prefix:
             return x
         return x[:, n_prefix:]
+
+
+class ViTFeatureMap(nn.Module):
+    """HaMeR's backbone wrapper: images [B,H,W,3] -> feature map [B,gh,gw,C]."""
+
+    def __init__(self, cfg: ViTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.vit = ViT(cfg, device)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        B, H, W, _ = images.shape
+        pp = c.patch_padding
+        gh = (H + 2 * pp - c.patch_size) // c.patch_size + 1
+        gw = (W + 2 * pp - c.patch_size) // c.patch_size + 1
+        return self.vit(images).reshape(B, gh, gw, c.embed_dim)

@@ -1,15 +1,21 @@
-"""The guidance renderer's camera.
+"""Cameras and projection.
 
-Counterpart of ``GuidanceCamera`` in followmyhold_tpu/ops/camera.py. The
-reference pipeline builds a PyTorch3D FoV camera with R = 180 degrees about y
-and T = 0 over meshes in GL convention (x right, y up, z toward the viewer).
-Composing that camera's NDC and screen transforms collapses to an OpenCV
-pinhole on the flipped point (x, -y, -z):
+Counterpart of followmyhold_tpu/ops/camera.py. Two camera models:
 
-    u = cx + f * x / (-z),   v = cy + f * (-y) / (-z)
+1. ``perspective_projection``, HaMeR's OpenCV pinhole, and
+   ``cam_crop_to_full``, which takes HaMeR's weak-perspective crop camera to a
+   translation in the full image.
 
-with f = (S-1)/2 / tan(fov/2), cx = (W-1)/2, cy = (H-1)/2, and camera-space
-depth z_cam = -z.
+2. ``GuidanceCamera``, the guidance renderer's camera. The reference
+   pipeline builds a PyTorch3D FoV camera with R = 180 degrees about y and
+   T = 0 over meshes in GL convention (x right, y up, z toward the viewer).
+   Composing that camera's NDC and screen transforms collapses to an OpenCV
+   pinhole on the flipped point (x, -y, -z):
+
+       u = cx + f * x / (-z),   v = cy + f * (-y) / (-z)
+
+   with f = (S-1)/2 / tan(fov/2), cx = (W-1)/2, cy = (H-1)/2, and
+   camera-space depth z_cam = -z.
 """
 
 from __future__ import annotations
@@ -21,6 +27,45 @@ from typing import Optional, Union
 import torch
 
 FovLike = Optional[Union[float, torch.Tensor]]
+
+
+def perspective_projection(
+    points: torch.Tensor,
+    translation: torch.Tensor,
+    focal_length: torch.Tensor,
+    camera_center: Optional[torch.Tensor] = None,
+    rotation: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """OpenCV pinhole projection of [B, N, 3] points -> [B, N, 2] pixels;
+    translation [B, 3], focal_length [B, 2], camera_center [B, 2], rotation
+    [B, 3, 3]."""
+    points = points.float()
+    if rotation is not None:
+        points = torch.einsum("bij,bkj->bki", rotation.float(), points)
+    points = points + translation[:, None, :]
+    uv = points[..., :2] / points[..., 2:3] * focal_length[:, None, :]
+    if camera_center is not None:
+        uv = uv + camera_center[:, None, :]
+    return uv
+
+
+def cam_crop_to_full(
+    cam_bbox: torch.Tensor,
+    box_center: torch.Tensor,
+    box_size: torch.Tensor,
+    img_size: torch.Tensor,
+    focal_length: float = 5000.0,
+) -> torch.Tensor:
+    """Weak-perspective crop camera (s, tx, ty) [B, 3] -> translation [B, 3]
+    in the full image; box_center [B, 2], box_size [B], img_size [B, 2] as
+    (width, height)."""
+    img_w, img_h = img_size[:, 0], img_size[:, 1]
+    cx, cy, b = box_center[:, 0], box_center[:, 1], box_size
+    bs = b * cam_bbox[:, 0] + 1e-9
+    tz = 2.0 * focal_length / bs
+    tx = (2.0 * (cx - img_w / 2.0) / bs) + cam_bbox[:, 1]
+    ty = (2.0 * (cy - img_h / 2.0) / bs) + cam_bbox[:, 2]
+    return torch.stack([tx, ty, tz], dim=-1)
 
 
 @dataclass(frozen=True)

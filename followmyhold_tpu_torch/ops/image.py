@@ -1,4 +1,12 @@
-"""Image resampling with the semantics of ``jax.image.resize(..., "cubic")``.
+"""Image resampling: the affine patch crop, and a resize with the semantics
+of ``jax.image.resize(..., "cubic")``.
+
+Counterpart of followmyhold_tpu/ops/image.py. The patch crop (HaMeR's
+ViTDetDataset crop) maps a source box onto the output patch by the similarity
+``gen_trans_from_patch`` solves in closed form, and samples the image through
+the inverse map bilinearly, as ``jax.scipy.ndimage.map_coordinates(order=1,
+mode="constant")`` does: each of the four taps outside the image counts as 0,
+and the taps are summed in the reference's order.
 
 The conditioner resizes its normalised crop (512^2 on the main path) to the
 encoder's 518^2 as the reference does, through ``jax.image.resize``: a Keys
@@ -12,6 +20,8 @@ float32 as the reference computes them.
 """
 
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,3 +67,90 @@ def resize_cubic(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
         wx = torch.from_numpy(cubic_resize_weights(W, width)).to(x.device)
         x = torch.einsum("bhwc,wk->bhkc", x, wx)
     return x
+
+
+def gen_trans_from_patch(
+    c_x: float, c_y: float,
+    src_width: float, src_height: float,
+    dst_width: float, dst_height: float,
+    scale: float = 1.0, rot_deg: float = 0.0,
+) -> np.ndarray:
+    """The 2x3 affine that maps the source patch (centre, size, scale,
+    rotation) onto the destination image, in float64 and returned as
+    float32, as the reference solves it."""
+    rot = np.pi * rot_deg / 180.0
+    sn, cs = np.sin(rot), np.cos(rot)
+    src_w, src_h = src_width * scale, src_height * scale
+    right = np.array([cs * src_w * 0.5, sn * src_w * 0.5], np.float64)
+    down = np.array([-sn * src_h * 0.5, cs * src_h * 0.5], np.float64)
+    src_center = np.array([c_x, c_y], np.float64)
+    dst_center = np.array([dst_width * 0.5, dst_height * 0.5], np.float64)
+    src_mat = np.stack([right, down], axis=1)
+    dst_mat = np.stack([np.array([dst_width * 0.5, 0.0]), np.array([0.0, dst_height * 0.5])],
+                       axis=1)
+    lin = dst_mat @ np.linalg.inv(src_mat)
+    trans = np.zeros((2, 3), np.float32)
+    trans[:, :2] = lin
+    trans[:, 2] = dst_center - lin @ src_center
+    return trans
+
+
+def _sample_bilinear(image: torch.Tensor, src_y: torch.Tensor,
+                     src_x: torch.Tensor) -> torch.Tensor:
+    """image [H,W,C] at float coordinates [h,w] -> [h,w,C]; taps outside the
+    image are 0."""
+    H, W = image.shape[:2]
+    y0, x0 = torch.floor(src_y), torch.floor(src_x)
+    wy1, wx1 = src_y - y0, src_x - x0
+    ys = ((y0.long(), 1 - wy1), (y0.long() + 1, wy1))
+    xs = ((x0.long(), 1 - wx1), (x0.long() + 1, wx1))
+    out = None
+    for yi, wy in ys:
+        for xi, wx in xs:
+            valid = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+            tap = image[yi.clamp(0, H - 1), xi.clamp(0, W - 1)]
+            term = (wy * wx)[..., None] * torch.where(valid[..., None], tap,
+                                                      torch.zeros_like(tap))
+            out = term if out is None else out + term
+    return out
+
+
+def warp_affine(image: torch.Tensor, trans: np.ndarray, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Apply a 2x3 forward (source -> destination) affine to [H,W] or [H,W,C]
+    by inverse bilinear sampling -> float32 [out_h, out_w(, C)]."""
+    H, W = out_hw
+    dev = image.device
+    A = torch.from_numpy(np.concatenate([np.asarray(trans, np.float32),
+                                         np.array([[0.0, 0.0, 1.0]], np.float32)]))
+    a_inv = torch.linalg.inv(A).to(dev)
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                            torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
+    src = a_inv @ torch.stack([xs, ys, torch.ones_like(xs)]).reshape(3, -1)
+    img = image.float()
+    flat = img[..., None] if img.dim() == 2 else img
+    out = _sample_bilinear(flat, src[1].reshape(H, W), src[0].reshape(H, W))
+    return out[..., 0] if img.dim() == 2 else out
+
+
+def generate_patch_image(
+    image: torch.Tensor,
+    bbox_xywh: Sequence[float],
+    out_hw: Tuple[int, int],
+    do_flip: bool = False,
+    scale: float = 1.0,
+    rot_deg: float = 0.0,
+) -> Tuple[torch.Tensor, np.ndarray]:
+    """Crop the affine patch of ``bbox_xywh`` from image [H,W,C] into out_hw;
+    ``do_flip`` mirrors the image first (HaMeR's left hands). -> (patch, the
+    3x3 transform)."""
+    x, y, w, h = (float(v) for v in bbox_xywh)
+    c_x, c_y = x + 0.5 * w, y + 0.5 * h
+    if do_flip:
+        image = image.flip(1)
+        c_x = image.shape[1] - c_x - 1
+    trans = gen_trans_from_patch(c_x, c_y, w, h, out_hw[1], out_hw[0], scale, rot_deg)
+    patch = warp_affine(image, trans, out_hw)
+    T = np.zeros((3, 3), np.float32)
+    T[:2] = trans
+    T[2, 2] = 1.0
+    return patch, T

@@ -56,13 +56,51 @@ def moge_grid_mesh(rows: int, cols: int, size: int, fov_deg: float, seed: int = 
     return verts, faces.astype(np.int32)
 
 
+def _write_hoi_crops(dirs: dict, image_id: str, is_right: bool, size: int, moge_grid,
+                     fov_deg: float, seed: int) -> None:
+    """One image's inputs of stages 5-8 that no ported stage makes: the HOI
+    crop {id}_cropped_hoi_{0|1}.png with its background (HaMeR's input) and
+    without it, on pure white (the Hunyuan stage's), the hand mask, and the
+    MoGe mesh with fov.json (the Hunyuan-to-MoGe alignment's target)."""
+    import json
+    import os
+
+    from PIL import Image
+
+    from followmyhold_tpu_torch.utils.mesh_io import write_ply
+
+    rng = np.random.default_rng(seed)
+    s = size / 512.0
+    name = f"{image_id}_cropped_hoi_{int(is_right)}.png"
+    img = rng.integers(0, 256, (size, size, 3)).astype(np.uint8)
+    hoi = np.zeros((size, size), bool)
+    hoi[int(140 * s):int(420 * s), int(120 * s):int(400 * s)] = True
+    Image.fromarray(img).save(os.path.join(dirs["cropped_hoi_dir"], name))
+    Image.fromarray(np.where(hoi[..., None], np.minimum(img, 250), 255).astype(np.uint8)).save(
+        os.path.join(dirs["cropped_hoi_wo_bckg_dir"], name))
+    hand = np.zeros((size, size), np.uint8)
+    hand[int(160 * s):int(320 * s), int(160 * s):int(320 * s)] = 255
+    Image.fromarray(hand).save(os.path.join(dirs["mask_dir"], f"{image_id}_cropped_hand_mask.png"))
+    moge_dir = os.path.join(dirs["moge_out_dir"], f"{image_id}_cropped_hoi")
+    os.makedirs(moge_dir, exist_ok=True)
+    write_ply(os.path.join(moge_dir, "mesh.ply"), *moge_grid_mesh(*moge_grid, size, fov_deg, seed))
+    with open(os.path.join(moge_dir, "fov.json"), "w", encoding="utf-8") as f:
+        json.dump({"fov_x": fov_deg}, f)
+
+
 def write_stage_inputs(root: str, image_id: str = "000001", size: int = 512,
-                       moge_grid=(384, 512), fov_deg: float = 60.0, seed: int = 0) -> dict:
+                       moge_grid=(384, 512), fov_deg: float = 60.0, seed: int = 0,
+                       hoi_ids=()) -> dict:
     """Synthetic artifacts of one image, written under ``root`` with the file
     names the guidance stage reads: the RGBA crop, the hand and object masks,
     the MoGe grid mesh with fov.json, T_h2m, the synthetic hand as the aligned
     MANO mesh, the HaMeR keypoints and J_regressor_hamer.npy. -> the
-    directories, keyed as ``guidance.run.run``'s arguments."""
+    directories, keyed as ``guidance.run.run``'s arguments.
+
+    Each of ``hoi_ids`` also gets the inputs of stages 5-8 (``_write_hoi_crops``;
+    the k-th a right hand for odd k), under ``cropped_hoi_dir`` and
+    ``cropped_hoi_wo_bckg_dir``; the stages' outputs belong in directories of
+    their own, since these hold the guidance stage's synthetic ones."""
     import json
     import os
 
@@ -73,6 +111,9 @@ def write_stage_inputs(root: str, image_id: str = "000001", size: int = 512,
     dirs = {k: os.path.join(root, k) for k in (
         "cropped_obj_img_dir", "mask_dir", "moge_out_dir", "hunyuan_hoi_mesh_dir",
         "hamer_out_dir", "h2m_rt_dir", "aligned_mano_dir", "guidance_out_dir")}
+    if hoi_ids:
+        dirs.update({k: os.path.join(root, k)
+                     for k in ("cropped_hoi_dir", "cropped_hoi_wo_bckg_dir")})
     for d in dirs.values():
         os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(seed)
@@ -111,4 +152,7 @@ def write_stage_inputs(root: str, image_id: str = "000001", size: int = 512,
             {"mano_2d_kps": kps}, allow_pickle=True)
     np.save(os.path.join(dirs["hamer_out_dir"], "J_regressor_hamer.npy"),
             mano.j_regressor.numpy())
+    for k, hoi_id in enumerate(hoi_ids):
+        _write_hoi_crops(dirs, hoi_id, k % 2 == 1, size, moge_grid, fov_deg,
+                         seed if hoi_id == image_id else seed + 1 + k)
     return dirs

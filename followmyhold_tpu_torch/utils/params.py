@@ -6,8 +6,9 @@ The port's modules keep the Flax modules' names, so the bridge is mechanical:
 - ``Dense`` ``kernel [in,out]`` -> ``Linear.weight [out,in]``; ``bias`` as is;
 - ``Conv`` ``kernel [kh,kw,in,out]`` (HWIO) -> ``Conv2d.weight [out,in,kh,kw]``;
 - ``LayerNorm`` / ``RMSNorm`` ``scale`` -> ``weight``; ``bias`` as is;
-- a scan-stacked block (``<name>/block/...`` with a leading depth axis) ->
-  ``<name>.<i>....``, one module per layer.
+- a scan-stacked block (``<name>/block/...``, or HaMeR head's
+  ``<name>/layer/...``, with a leading depth axis) -> ``<name>.<i>....``, one
+  module per layer.
 
 The tree is given as nested dicts of numpy arrays (the caller converts; this
 package imports no JAX). Every module parameter must be filled and every tree
@@ -21,6 +22,10 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+
+# the names the Flax modules give the body of an ``nn.scan`` over layers
+_SCAN_SCOPES = ("block", "layer")
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -54,7 +59,7 @@ def flax_to_torch(params: Mapping, module: nn.Module) -> nn.Module:
 
     for path, value in _flatten(params).items():
         *scope, leaf = path
-        depth_at = scope.index("block") if "block" in scope else None
+        depth_at = next((i for i, name in enumerate(scope) if name in _SCAN_SCOPES), None)
         if leaf == "kernel" and value.ndim == 4 and depth_at is None:
             leaf = "weight"          # conv: HWIO -> OIHW
             value = np.transpose(value, (3, 2, 0, 1))
