@@ -17,17 +17,24 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             Also the deterministic scatter-add behind every gather's gradient
             (ops/indexing.scatter_rows_add): no host sync, same bits in two
             calls, timed beside the atomic index_add_ it replaced.
-4. stages   stages 5-8 on two synthetic HOI crops (write_stage_inputs' hoi_ids; a
-            left and a right hand), as a user runs them, with the full-width models:
-            geometry/hunyuan.run (both images in one batch through 30 CFG DiT steps,
-            K1 at [4,16,4442,128]; each through the 384^3 export and the
-            post-processing; the field's logit level set for this stage's latents,
-            see _stage5_level), hand/hamer.run (ViT-H HaMeR, bf16, with the overlay
-            through K3), alignment/h2m.run and alignment/mano.run. The launch counts
-            are set to 0 just before and read just after; it prints s per image split
-            by part and the ICP's host synchronisations, holds K3 against its plain
-            version on the overlay's render, and feeds image 0's files to
-            guidance/run.build_targets.
+4. stages   stages 4-8 on two synthetic HOI crops (write_stage_inputs' hoi_ids; a
+            left and a right hand), as a user runs them, with the full-width models.
+            First stage 4, geometry/moge.run on the crops without background:
+            MoGe with DINOv2-L (24 x 1024, bf16) and the published neck and heads at
+            resolution level 9 (a 60x60 grid: K1 at [1,16,3601,64], 24 launches a
+            crop), its head outputs shaped into a scene (see _shape_moge), with its
+            own launch counts, s per image by part, moge_infer's host syncs and
+            every file checked. Then geometry/hunyuan.run (both images in one batch
+            through 30 CFG DiT steps, K1 at [4,16,4442,128]; each through the 384^3
+            export and the post-processing; the field's logit level set for this
+            stage's latents, see _stage5_level), hand/hamer.run (ViT-H HaMeR, bf16,
+            with the overlay through K3), alignment/h2m.run against stage 4's meshes
+            and alignment/mano.run. The launch counts are set to 0 just before and
+            read just after; it prints s per image split by part and the ICP's host
+            synchronisations, holds K3 against its plain version on the overlay's
+            render, and feeds image 0's files, stage 4's mesh and field of view
+            among them, to guidance/run.build_targets (its time and transient
+            memory).
 5. main     the guidance stage on one image, as a user runs it: guidance/run.py's
             run_hunyuan_w_guid on synthetic artifacts (a 512^2 crop, masks, a 384x512
             MoGe grid mesh, the synthetic hand, keypoints), with the full-width
@@ -44,9 +51,16 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             tets on the host), floaters, degenerate faces, face reduction, and the
             two PLYs. The kernels' launch counts are set to 0 just before the stage
             and read just after; it prints s per image split by part.
-6. result   a `kernels` JSON line (`launches`: the guidance stage's run;
-            `launches_stages_5_8`: the run of stages 5-8), the nvidia-smi line, and the
-            `ok` JSON line.
+6. batch    the guidance stage on two images in one batch: guidance/run.run with
+            batch_size=2 over two scenes at 50 and 70 degrees, with the same models
+            and the default config (GuidedSampler.run_batch: the DiT at batch 4, the
+            phases image by image; the exports two at once), with its own launch
+            counts; checks all four PLYs, that the two poses differ, and each
+            image's batched DiT prediction against its batch-2 one.
+7. result   a `kernels` JSON line (`launches`: the guidance stage's run of one
+            image; `launches_stage_4`, `launches_stages_5_8`, `launches_batched`: the
+            runs of stage 4, of stages 5-8 and of the batched stage), the nvidia-smi
+            line, and the `ok` JSON line.
 
 Tolerances, and why:
 - flash attention O (bf16): 1e-2 * max|ref| + 1e-3. The kernel rounds the
@@ -167,6 +181,7 @@ def _rel_err(got, want) -> float:
 
 def check_flash_attention(dev) -> dict:
     from followmyhold_tpu_torch.ops import attention as A
+    from followmyhold_tpu_torch.tools.time_raster_kernels import time_call
 
     shapes = [  # (label, B, H, N, M, D); the first has most launches on the main path
         ("vae_self", 1, 16, 3072, 3072, 64),
@@ -174,6 +189,7 @@ def check_flash_attention(dev) -> dict:
         ("dit_joint", 2, 16, 4442, 4442, 128),
         ("dit_batch", 4, 16, 4442, 4442, 128),   # the Hunyuan stage: two images with CFG
         ("cond_self", 1, 24, 1370, 1370, 64),  # DINOv2-G's 40 self-attentions (ragged)
+        ("moge_self", 1, 16, 3601, 3601, 64),  # MoGe's DINOv2-L, 24 a crop (ragged)
         ("ragged", 1, 16, 3000, 2900, 64),   # the kv mask, zero-filled rows, rows past N
         ("d80", 1, 16, 1024, 1024, 80),      # head sizes padded to 128 by the wrapper
         ("d72", 1, 16, 1024, 1024, 72),
@@ -221,6 +237,7 @@ def check_flash_attention(dev) -> dict:
                 fail(f"flash attention {label}: " + "; ".join(wrong))
             del ref, ref_lse
             ms = cuda_ms(lambda: A.flash_attention_forward(q, k, v, scale), 2, 10)
+            graph_ms = time_call(lambda: A.flash_attention_forward(q, k, v, scale))["graph_ms"]
             plain_ms = cuda_ms(lambda: A.flash_attention_plain(q, k, v, scale), 1, 2)
             lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, scale=scale), 2, 10)
@@ -230,13 +247,14 @@ def check_flash_attention(dev) -> dict:
         per_shape.append(dict(
             shape=label, dims=[B, H, N, M, D], max_abs_err=err_o, rel_err=rel,
             rel_err_one_tile_missing=fault, lse_max_abs_err=err_l,
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
             tflops=flops / ms / 1e9))
         say(f"kernel flash_attention_fwd {label} {[B, H, N, M, D]}: err_O {err_o:.3e} relative "
             f"{rel:.2e} (limit {_FWD_REL_LIMIT:.2e}; one kv tile missing {fault:.2e}) err_lse "
-            f"{err_l:.3e}; same bits in two calls; kernel {ms:.3f} ms "
-            f"({flops / ms / 1e9:.0f} TFLOP/s, {ms / lib_ms:.2f}x sdpa) plain {plain_ms:.3f} ms "
+            f"{err_l:.3e}; same bits in two calls; kernel {ms:.3f} ms (graph replay "
+            f"{graph_ms:.3f}; {flops / ms / 1e9:.0f} TFLOP/s, {ms / lib_ms:.2f}x sdpa) plain "
+            f"{plain_ms:.3f} ms "
             f"sdpa {lib_ms:.3f} ms bound {max(t_ops, t_bytes):.3f} ms")
         del q, k, v, out, lse
         torch.cuda.empty_cache()
@@ -245,8 +263,9 @@ def check_flash_attention(dev) -> dict:
                 source="followmyhold_tpu_torch/csrc/flash_attention_fwd.cu",
                 replaces="followmyhold_tpu/ops/attention.py:108",
                 max_abs_err=max(s["max_abs_err"] for s in per_shape),
-                ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-                bound_by=head["bound_by"], library_ms=head["library_ms"], shapes=per_shape)
+                ms=head["ms"], graph_ms=head["graph_ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"], shapes=per_shape)
 
 
 def _plain_backward_by_slice(A, q, k, v, do, lse, dsum, scale):
@@ -944,17 +963,160 @@ def _stage5_level(dev, models, image_dir: str) -> dict:
     return dict(level=level, inside_shares=shares)
 
 
+# MoGe's random-weight head outputs are blended into a scene (see _shape_moge): the
+# share of the raw points (scaled to at most 1) and of the raw mask kept
+_MOGE_NOISE = 1e-3
+
+
+def _shape_moge(model, dev):
+    """Give the random-weight MoGe a point map that is a scene. Random
+    weights predict points with no perspective in them: the focal fit's cost
+    is flat (its minimum, and so the field of view, is rounding noise, and
+    the closed-form focal may be negative), and the depth varies from pixel
+    to pixel by more than the depth-edge limit, so that no face survives. A
+    forward hook on the model blends tools._scene.moge_scene into the head
+    outputs: an object in front of a tilted background at 60 degrees, its z
+    shifted by 1.5, a strip of invalid pixels along the top, plus _MOGE_NOISE
+    of the raw points (scaled to at most 1) and of the raw mask; normals and
+    the metric scale stay as predicted. Everything before the heads' output,
+    the encoder's K1 launches included, runs as it is. -> the hook's handle."""
+    from followmyhold_tpu_torch.tools._scene import moge_scene
+
+    scenes = {}
+
+    def hook(module, args, out):
+        H, W = args[0].shape[1:3]
+        if (H, W) not in scenes:
+            pts, mask = moge_scene(H, W)
+            scenes[(H, W)] = (torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev))
+        pts, mask = scenes[(H, W)]
+        raw = out["points"]
+        return dict(out, points=pts[None] + _MOGE_NOISE * raw / raw.abs().amax().clamp(min=1.0),
+                    mask=mask[None] + _MOGE_NOISE * (out["mask"] - 0.5))
+
+    return model.register_forward_hook(hook)
+
+
+def run_moge_stage(dev, d: dict, out_dir: str) -> dict:
+    """Stage 4 as a user runs it: geometry/moge.run on the HOI crops without
+    background (write_stage_inputs' hoi_ids) with MoGe at full width (DINOv2-L,
+    24 x 1024, bf16; the published neck and heads; resolution level 9: a 60x60
+    grid, K1 at [1,16,3601,64]) on seeded random weights, its head outputs
+    shaped into a scene (_shape_moge). The launch counts are set to 0 just
+    before and read just after. It prints s per image split into resize and
+    forward, focal and shift, the mesh and the file writes, and the host
+    synchronisations, and checks every file."""
+    import json
+
+    from PIL import Image
+
+    from followmyhold_tpu_torch.configs.profiles import moge_config
+    from followmyhold_tpu_torch.geometry import moge as stage4
+    from followmyhold_tpu_torch.models import moge as M
+    from followmyhold_tpu_torch.ops import _kernels
+    from followmyhold_tpu_torch.utils.mesh_io import load_mesh
+
+    t0 = time.perf_counter()
+    cfg = moge_config()
+    model = stage4._build_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters()) / 1e9
+    say(f"moge: built MoGe at full width (DINOv2-L + neck + heads, {n_params:.3f} billion "
+        f"parameters, bf16) in {time.perf_counter() - t0:.1f} s")
+    handle = _shape_moge(model, dev)
+    calls = {}
+    patched = [(M.MoGe, "forward", "resize_and_forward"),
+               (M, "recover_focal_shift", "focal_shift"),
+               (stage4, "depth_edge", "mesh"), (stage4, "image_mesh", "mesh")]
+    originals = [(owner, name, getattr(owner, name)) for owner, name, _ in patched]
+    try:
+        for (owner, name, key), (_, _, fn) in zip(patched, originals):
+            setattr(owner, name, _timed(fn, calls, key))
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stage4.run(d["cropped_hoi_wo_bckg_dir"], out_dir, models=model, device=dev)
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        launches = _kernels.launch_counts()
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+        # the host synchronisations of one image's forward, focal fit and outputs
+        crop = np.asarray(Image.open(os.path.join(
+            d["cropped_hoi_wo_bckg_dir"], f"{HOI_IDS[0]}_cropped_hoi_0.png")).convert("RGB"))
+        image = torch.from_numpy(crop.astype(np.float32) / 255.0)[None].to(dev)
+        syncs = _count_syncs(lambda: M.moge_infer(model, image))
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+        handle.remove()
+    del model
+    torch.cuda.empty_cache()
+
+    n = len(HOI_IDS)
+    secs = {key: sum(calls.get(key, [0.0])) for _, _, key in patched}
+    writes = stage_s - sum(secs.values())
+    say(f"moge: stage 4 (MoGe, {n} images) {stage_s:.3f} s, {stage_s / n:.3f} s per image: "
+        f"resize and forward {secs['resize_and_forward'] / n:.4f}, focal and shift "
+        f"{secs['focal_shift'] / n:.4f}, depth edges and image_mesh {secs['mesh'] / n:.4f}, "
+        f"reading, host copies and file writes {writes / n:.4f} s per image (each forward: "
+        f"{', '.join(f'{x:.4f}' for x in calls['resize_and_forward'])} s; the first pays "
+        f"one-time set-up); moge_infer syncs the host {syncs} times; launches {launches}")
+
+    want_k1 = cfg.encoder.depth * n
+    if launches["flash_attention_fwd"] != want_k1:
+        fail(f"stage 4 launched K1 {launches['flash_attention_fwd']} times, expected {want_k1} "
+             f"(24 per image)")
+    files = ("depth.npy", "points.npy", "mask.png", "normal.png", "fov.json", "mesh.ply",
+             "pointcloud.ply")
+    per_image = {}
+    for image_id in HOI_IDS:
+        sub = os.path.join(out_dir, f"{image_id}_cropped_hoi")
+        missing = [f for f in files if not os.path.exists(os.path.join(sub, f))]
+        if missing:
+            fail(f"stage 4: {image_id} lacks {missing}")
+        depth = np.load(os.path.join(sub, "depth.npy"))
+        points = np.load(os.path.join(sub, "points.npy"))
+        mask = np.asarray(Image.open(os.path.join(sub, "mask.png"))) > 0
+        with open(os.path.join(sub, "fov.json"), encoding="utf-8") as f:
+            fov = json.load(f)
+        mesh = load_mesh(os.path.join(sub, "mesh.ply"))
+        cloud = load_mesh(os.path.join(sub, "pointcloud.ply"))
+        if not (depth.shape == crop.shape[:2] and points.shape == crop.shape
+                and np.isfinite(depth).all() and np.isfinite(points).all()):
+            fail(f"stage 4: {image_id}'s depth {depth.shape} or points {points.shape} are not "
+                 f"finite maps of the crop's size")
+        if not all(0.0 < fov[k] < 180.0 for k in ("fov_x", "fov_y")):
+            fail(f"stage 4: {image_id}'s field of view {fov}")
+        if not (mesh.num_faces > 0 and np.isfinite(mesh.vertices).all()
+                and (mesh.vertices[:, 2] <= 0).all()
+                and cloud.num_vertices == mesh.num_vertices):
+            fail(f"stage 4: {image_id}'s mesh has {mesh.num_faces} faces, or vertices behind "
+                 f"the camera (GL z > 0), or its point cloud differs")
+        if not (mask.any() and (depth[mask] > 0).all()):
+            fail(f"stage 4: {image_id}'s mask is empty or holds a depth <= 0")
+        per_image[image_id] = dict(fov=fov, faces=int(mesh.num_faces),
+                                   verts=int(mesh.num_vertices), mask_share=float(mask.mean()),
+                                   depth_range=[float(depth[mask].min()),
+                                                float(depth[mask].max())])
+    say(f"moge: every file written and checked: {per_image}")
+    return dict(seconds=stage_s, calls=calls, syncs=syncs, launches=launches,
+                per_image=per_image)
+
+
 def run_hoi_stages(dev, models, d: dict, root: str) -> dict:
-    """Stages 5-8 as a user runs them, on the two HOI crops of HOI_IDS
-    (write_stage_inputs; image 0 a left hand, image 1 a right one):
+    """Stages 4-8 as a user runs them, on the two HOI crops of HOI_IDS
+    (write_stage_inputs; image 0 a left hand, image 1 a right one): first
+    stage 4 (run_moge_stage, with its own launch counts), then
     geometry/hunyuan.run on both in one batch with the full-width models
     (the DiT at [4, ...] with CFG, K1 at [4,16,4442,128]), each through the
     384^3 export and the post-processing; hand/hamer.run with the full-width
-    HaMeR (ViT-H, bf16) and the overlay (K3); alignment/h2m.run against the
-    synthetic MoGe meshes and alignment/mano.run. The kernels' counts are set
-    to 0 just before and read just after. Then the checks, K3 held against
+    HaMeR (ViT-H, bf16) and the overlay (K3); alignment/h2m.run against stage
+    4's meshes and alignment/mano.run. The kernels' counts are set to 0 just
+    before stages 5-8 and read just after. Then the checks, K3 held against
     its plain version on the overlay's render, ICP's host synchronisations
-    counted, and guidance/run.build_targets on image 0's files."""
+    counted, and guidance/run.build_targets on image 0's files, stage 4's
+    mesh and field of view among them (its time and transient memory)."""
     from followmyhold_tpu_torch.alignment import h2m, mano as mano_align, mesh_align
     from followmyhold_tpu_torch.diffusion import pipeline
     from followmyhold_tpu_torch.geometry import hunyuan as hoi
@@ -968,7 +1130,9 @@ def run_hoi_stages(dev, models, d: dict, root: str) -> dict:
     from followmyhold_tpu_torch.utils.mesh_io import load_mesh
 
     out = {k: os.path.join(root, "stages", k) for k in (
-        "hunyuan_hoi_mesh_dir", "hamer_out_dir", "h2m_rt_dir", "aligned_mano_dir")}
+        "moge_out_dir", "hunyuan_hoi_mesh_dir", "hamer_out_dir", "h2m_rt_dir",
+        "aligned_mano_dir")}
+    moge = run_moge_stage(dev, d, out["moge_out_dir"])
     t0 = time.perf_counter()
     hamer_model = hand._build_model(hand._default_config(), device=dev)
     torch.cuda.synchronize()
@@ -1009,7 +1173,7 @@ def run_hoi_stages(dev, models, d: dict, root: str) -> dict:
                 ("stage6", lambda: hand.run(d["cropped_hoi_dir"], out["hamer_out_dir"],
                                             mask_dir=d["mask_dir"], save_overlay=True,
                                             model=hamer_model, device=dev)),
-                ("stage7", lambda: h2m.run(out["hunyuan_hoi_mesh_dir"], d["moge_out_dir"],
+                ("stage7", lambda: h2m.run(out["hunyuan_hoi_mesh_dir"], out["moge_out_dir"],
                                            out["h2m_rt_dir"], device=dev)),
                 ("stage8", lambda: mano_align.run(out["hamer_out_dir"],
                                                   out["hunyuan_hoi_mesh_dir"],
@@ -1122,24 +1286,43 @@ def run_hoi_stages(dev, models, d: dict, root: str) -> dict:
              "icp_10_iterations": _count_syncs(lambda: icp(src, tgt, n_iter=10, outliers=0.2))}
     say(f"hoi: host synchronisations: {syncs}")
 
-    # the guidance stage's targets from image 0's files of these stages
+    # the guidance stage's targets from image 0's files of these stages: stage 4's
+    # mesh (a 512x512 grid, above build_targets' caps: truncated as the reference
+    # truncates it) at stage 4's field of view
+    import json
+
+    moge_dir = os.path.join(out["moge_out_dir"], f"{img0}_cropped_hoi")
+    with open(os.path.join(moge_dir, "fov.json"), encoding="utf-8") as f:
+        fovx = float(json.load(f)["fov_x"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     targets = stage.build_targets(
-        GuidanceCamera(height=frame_hw[0], width=frame_hw[1], fov_deg=60.0),
+        GuidanceCamera(height=frame_hw[0], width=frame_hw[1], fov_deg=fovx),
         os.path.join(out["aligned_mano_dir"], f"{img0}_hamer_aligned_mano.ply"),
         os.path.join(out["h2m_rt_dir"], f"{img0}_hoi_mesh.npy"),
-        os.path.join(d["moge_out_dir"], f"{img0}_cropped_hoi", "mesh.ply"), hand_mask,
+        os.path.join(moge_dir, "mesh.ply"), hand_mask,
         stage._load_mask(os.path.join(d["mask_dir"], f"{img0}_cropped_obj_mask.png")),
         os.path.join(out["hamer_out_dir"], f"{img0}_kps_for_guidance.npy"),
         np.load(os.path.join(out["hamer_out_dir"], "J_regressor_hamer.npy")), device=dev)
+    torch.cuda.synchronize()
+    targets_s = time.perf_counter() - t0
+    targets_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     if not (targets.mano_verts_moge.shape == (778, 3) and targets.hamer_2d_kps.shape == (21, 2)
             and all(torch.isfinite(x).all() for x in (
                 targets.mano_verts_moge, targets.hamer_2d_kps, targets.moge_normal,
                 targets.moge_disp, targets.t_h2m))):
-        fail("build_targets on the files of stages 5-8 gave wrong shapes or non-finite values")
-    say(f"hoi: build_targets accepts {img0}'s files of stages 5-8 (MANO in MoGe space centred "
-        f"at {targets.mano_verts_moge.mean(0).tolist()})")
+        fail("build_targets on the files of stages 4-8 gave wrong shapes or non-finite values")
+    if not targets.moge_disp.abs().amax().item() > 0:
+        fail("build_targets: stage 4's mesh renders no disparity inside the masks")
+    say(f"hoi: build_targets accepts {img0}'s files of stages 4-8 (stage 4's mesh of "
+        f"{moge['per_image'][img0]['faces']} faces at {fovx} degrees; MANO in MoGe space centred "
+        f"at {targets.mano_verts_moge.mean(0).tolist()}) in {targets_s:.3f} s, "
+        f"{targets_gib:.2f} GiB transient")
     return dict(launches=launches, launches_per_stage=counts, seconds=stage_s, calls=calls,
-                syncs=syncs, field=level5,
+                syncs=syncs, field=level5, moge=moge,
+                build_targets=dict(seconds=targets_s, transient_gib=targets_gib),
                 raster_overlay=(fwd_ov, bwd_ov))
 
 
@@ -1422,7 +1605,136 @@ def run_stage(dev) -> dict:
         fail(f"scatter_rows_add launched {launches['scatter_rows_add']} times, expected at "
              f"least {2 * (want_raster - 1)}")
     shutil.rmtree(root, ignore_errors=True)
-    return dict(launches=launches, hoi=hoi)
+    batched = run_batched_stage(dev, (dit, vae, cond))
+    return dict(launches=launches, hoi=hoi, batched=batched)
+
+
+# the batched run's two images: the main path's image (its crop, its noise stream) and
+# a second one, at two fields of view
+BATCH_IDS = (IMAGE_ID, "000002")
+BATCH_FOVS = (50.0, 70.0)
+# each image's CFG noise prediction from the DiT at batch 4 (both images) against its
+# own at batch 2: the GEMMs of the two batch sizes may tile the sums apart, one bf16
+# rounding step (2^-8) of the outputs that differ, compounding over the DiT's blocks as
+# the conditioner's 40 layers compounded K1's (7.8e-3), and the CFG scale multiplies
+# the difference of the conditional and unconditional predictions
+_BATCH_REL_LIMIT = 2.0 ** -5
+
+
+def run_batched_stage(dev, models) -> dict:
+    """The guidance stage on two images in one batch, as a user runs it:
+    guidance/run.run(batch_size=2) over two write_stage_inputs scenes at 50 and
+    70 degrees (each image's field of view in its own targets), with the main
+    path's full-width models (run's build_models hands them over: the
+    ShapeVAE's field is shaped, see _shape_field), the default
+    OptimizationConfig and the 384^3 export. The DiT runs once a step for both
+    images (K1 at [4,16,4442,128]), the phases image by image, the exports in
+    a two-worker pool. The launch counts are set to 0 just before and read
+    just after. It prints s per image, the DiT step at batch 4 and ms per
+    iteration; it checks both images' PLYs, that the two optimized poses
+    differ, and each image's batched DiT prediction against its batch-2 one."""
+    import tempfile
+
+    from followmyhold_tpu_torch.configs.profiles import crop_size, optimization_config
+    from followmyhold_tpu_torch.diffusion.guidance import GuidedSampler
+    from followmyhold_tpu_torch.diffusion.pipeline import cfg_noise_pred
+    from followmyhold_tpu_torch.guidance import run as stage
+    from followmyhold_tpu_torch.models.hunyuan import COND_FULL, DIT_FULL, VAE_FULL
+    from followmyhold_tpu_torch.ops import _kernels
+    from followmyhold_tpu_torch.tools._scene import write_stage_inputs
+    from followmyhold_tpu_torch.utils.mesh_io import load_mesh
+
+    root = tempfile.mkdtemp(prefix="fmh_batch_")
+    for k, (image_id, fov) in enumerate(zip(BATCH_IDS, BATCH_FOVS)):
+        size = crop_size()
+        d = write_stage_inputs(root, image_id=image_id, size=size,
+                               moge_grid=(size * 3 // 4, size), fov_deg=fov, seed=k)
+    dirs = [d[k] for k in ("cropped_obj_img_dir", "mask_dir", "moge_out_dir",
+                           "hunyuan_hoi_mesh_dir", "hamer_out_dir", "h2m_rt_dir",
+                           "aligned_mano_dir", "guidance_out_dir")]
+    calls, kept = {}, {}
+    run_batch_orig, build_orig = GuidedSampler.run_batch, stage.build_models
+    export_orig = stage._export_and_write
+
+    def run_batch(self, cond_main, uncond_main, *a, **k):
+        kept["cond"], kept["sampler"] = (cond_main, uncond_main), self
+        kept["result"] = _timed(run_batch_orig, calls, "sampler")(self, cond_main, uncond_main,
+                                                                    *a, **k)
+        return kept["result"]
+
+    GuidedSampler.run_batch = run_batch
+    stage.build_models = lambda *a, **k: models
+    stage._export_and_write = _timed(export_orig, calls, "export")
+    try:
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stage.run(root, *dirs, batch_size=2, device=dev)
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        launches = _kernels.launch_counts()
+    finally:
+        GuidedSampler.run_batch, stage.build_models = run_batch_orig, build_orig
+        stage._export_and_write = export_orig
+    if "result" not in kept:
+        fail("the batched run did not reach GuidedSampler.run_batch")
+    result, n = kept["result"], len(BATCH_IDS)
+    config = optimization_config()   # the stage's
+    n_hand, n_obj = config.optimization_steps_hand, config.optimization_steps_scale
+    n_joint = config.optimization_steps_joint * (config.num_inference_steps
+                                                 - config.handopt_start_step - 2)
+    sec, dit_s = result.seconds, result.seconds["dit_steps"]
+    say(f"batch: guidance stage on {n} images in one batch ({dict(zip(BATCH_IDS, BATCH_FOVS))} "
+        f"degrees) {stage_s:.2f} s, {stage_s / n:.2f} s per image: sampler "
+        f"{calls['sampler'][0]:.2f} s (DiT step at batch {2 * n} median "
+        f"{float(np.median(dit_s)):.4f} s, first {dit_s[0]:.4f} s; hand "
+        f"{sec['hand'] / (n * n_hand) * 1e3:.2f}, object {sec['obj'] / (n * n_obj) * 1e3:.2f}, "
+        f"joint {sec['joint'] / (n * n_joint) * 1e3:.2f} ms per image and iteration); exports "
+        f"(two at once) {', '.join(f'{x:.2f}' for x in calls['export'])} s; launches {launches}")
+
+    # ---- checks -------------------------------------------------------------- #
+    for image_id in BATCH_IDS:
+        paths = [os.path.join(d["guidance_out_dir"], f"{image_id}_{part}.ply")
+                 for part in ("obj", "hand")]
+        if not all(os.path.exists(p) and os.path.getmtime(p) >= t0 - 1.0 for p in paths):
+            fail(f"the batched run did not write both PLYs of {image_id}")
+        obj_ply, hand_ply = load_mesh(paths[0]), load_mesh(paths[1])
+        if not (obj_ply.num_faces > 0 and np.isfinite(obj_ply.vertices).all()
+                and hand_ply.num_vertices == 778 and np.isfinite(hand_ply.vertices).all()):
+            fail(f"{image_id}'s PLYs of the batched run are empty or not finite")
+        say(f"batch: wrote {image_id}_obj.ply ({obj_ply.num_faces} faces) and "
+            f"{image_id}_hand.ply")
+    for tag, curve in result.losses.items():
+        if not (curve.shape[0] == n and torch.isfinite(curve).all()):
+            fail(f"batched {tag} loss curves {tuple(curve.shape)} are not finite per image")
+    moved = {name: max((x[0] - x[1]).abs().max().item() for x in getattr(result, name))
+             for name in ("hand", "obj")}
+    if not min(moved.values()) > 1e-4:
+        fail(f"the two images' optimized poses do not differ: {moved}")
+    cond_main, uncond_main = kept["cond"]
+    lat = result.latents[:, 0]
+    g, t = config.obj_guidance_scale, 0.5
+    together = cfg_noise_pred(models[0], torch.cat([cond_main[:, 0], uncond_main[:, 0]]), lat,
+                              t, g)
+    rel = [_rel_err(together[b:b + 1], cfg_noise_pred(
+        models[0], torch.cat([cond_main[b], uncond_main[b]]), lat[b:b + 1], t, g))
+        for b in range(n)]
+    if not all(math.isfinite(r) and r <= _BATCH_REL_LIMIT for r in rel):
+        fail(f"the batched DiT prediction differs from each image's batch-2 one by {rel} "
+             f"relative (limit {_BATCH_REL_LIMIT})")
+    say(f"batch: the two images' poses differ (hand by {moved['hand']:.4f}, object by "
+        f"{moved['obj']:.4f}); each image's DiT prediction at batch {2 * n} against batch 2: "
+        f"relative {[f'{r:.2e}' for r in rel]} (limit {_BATCH_REL_LIMIT:.2e})")
+    n_blocks = DIT_FULL.depth_double + DIT_FULL.depth_single
+    want = {"flash_attention_fwd": n_blocks * config.num_inference_steps + n * COND_FULL.depth,
+            "flash_attention_bwd": n * VAE_FULL.depth * (n_obj + n_joint),
+            "raster_fwd": n * (n_hand + n_obj + 2 * n_joint + 1)}
+    short = {k: (launches[k], v) for k, v in want.items() if launches[k] < v}
+    if short:
+        fail(f"the batched run launched kernels fewer times than it runs them: {short}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches, seconds=stage_s, sampler_seconds=sec, calls=calls,
+                dit_rel=rel)
 
 
 def main() -> None:
@@ -1459,17 +1771,21 @@ def main() -> None:
 
     kernels = [check_flash_attention(dev), check_flash_attention_backward(dev),
                *check_rasterizer(dev)]
-    launches = launches_hoi = {k["name"]: 0 for k in kernels}
+    launches = launches_hoi = launches_moge = launches_batch = {k["name"]: 0 for k in kernels}
     if not args.kernels_only:
         ran = run_stage(dev)
         launches, hoi = ran["launches"], ran["hoi"]
-        launches_hoi = hoi["launches"]
+        launches_hoi, launches_moge = hoi["launches"], hoi["moge"]["launches"]
+        launches_batch = ran["batched"]["launches"]
         for k, overlay in zip(kernels[-3:-1], hoi["raster_overlay"]):
             k["overlay_mesh"] = overlay
     for k in kernels:
-        # launches: the guidance stage's; launches_stages_5_8: the run of stages 5-8
+        # launches: the guidance stage's run of one image; launches_stage_4, _stages_5_8
+        # and _batched: the runs of stage 4, of stages 5-8 and of the batched guidance
         k["launches"] = launches[k["name"]]
+        k["launches_stage_4"] = launches_moge[k["name"]]
         k["launches_stages_5_8"] = launches_hoi[k["name"]]
+        k["launches_batched"] = launches_batch[k["name"]]
 
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -11,7 +11,11 @@ from __future__ import annotations
 
 import os
 
+import torch
+
 from followmyhold_tpu_torch.configs.guidance import OptimizationConfig
+from followmyhold_tpu_torch.models.moge import MoGeConfig
+from followmyhold_tpu_torch.models.vit import ViTConfig
 
 
 def profile_name() -> str:
@@ -37,6 +41,21 @@ def optimization_config() -> OptimizationConfig:
             final_octree_resolution=16,
         )
     return OptimizationConfig()
+
+
+def moge_config() -> MoGeConfig:
+    """MoGe with DINOv2-L and the published neck and heads, or the
+    reference's tiny configuration: a 2-block encoder of width 32 on a 2x2
+    checkpoint grid, three neck levels, 4-16 tokens."""
+    if is_tiny():
+        return MoGeConfig(
+            encoder=ViTConfig(img_size=(28, 28), patch_size=14, embed_dim=32, depth=2,
+                              num_heads=2, use_cls_token=True, layerscale_init=1e-5,
+                              dtype=torch.float32),
+            intermediate_layers=(0, 1), dim_proj=16, neck_dims=(16, 16, 8),
+            head_dims=(16, 16, 8), num_res_blocks=1, scale_head_dims=(16, 1),
+            num_tokens_range=(4, 16), dtype=torch.float32)
+    return MoGeConfig()
 
 
 def hunyuan_octree_resolution() -> int:

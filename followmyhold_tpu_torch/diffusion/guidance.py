@@ -31,7 +31,8 @@ device's marching tets, above it (the stage's 384^3) with the two-level
 decode (``models.hunyuan.hierarchical_export_logits``) and the host's exact
 marching tets (``ops.surface.marching_tets_host``). ``run`` takes a
 ``utils.debug.DebugDir`` for the reference's loss lines, render snapshots and
-mesh dumps. Not ported: ``run_batch``.
+mesh dumps. ``run_batch`` runs several images at once: one DiT evaluation a
+step for the whole batch, the optimization phases image by image.
 
 Where the reference folds each optimizer loop into one compiled scan, this is a
 Python loop around ``torch.optim.Adam`` / ``torch.optim.AdamW`` (one parameter
@@ -43,7 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -315,6 +316,26 @@ def _indicators(out, n_sel: Optional[int] = None, renders=None) -> dict:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _guidance_scale(cfg: OptimizationConfig, i: int, n: int) -> float:
+    """The CFG scale of step i: it decays as scale * (1 - i/n) after guidance
+    starts."""
+    if i >= cfg.guidance_start_step + 1:
+        return cfg.obj_guidance_scale * (1 - i / n)
+    return cfg.obj_guidance_scale
+
+
+def _phase_at(cfg: OptimizationConfig, i: int):
+    """(loss-log tag, phase) of the optimization phase step i runs, or (None,
+    None)."""
+    if i == cfg.handopt_start_step:
+        return "hand", "hand"
+    if i == cfg.handopt_start_step + 1:
+        return "obj", "obj"
+    if i >= cfg.handopt_start_step + 2:
+        return f"joint_{i}", "joint"
+    return None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -597,34 +618,25 @@ class GuidedSampler:
         seconds: dict = {"dit_steps": [], "hand": 0.0, "obj": 0.0, "joint": 0.0}
         noise_pred = torch.zeros_like(latents)
         for i in range(n):
-            # CFG decay after guidance starts
-            if i >= cfg.guidance_start_step + 1:
-                g = cfg.obj_guidance_scale * (1 - i / n)
-            else:
-                g = cfg.obj_guidance_scale
             _sync(dev)
             t0 = time.perf_counter()
             noise_pred = cfg_noise_pred(
                 self.dit, cond_cat, latents,
-                sched.timesteps[i] / sched.num_train_timesteps, g)
+                sched.timesteps[i] / sched.num_train_timesteps, _guidance_scale(cfg, i, n))
             _sync(dev)
             seconds["dit_steps"].append(time.perf_counter() - t0)
 
             t0 = time.perf_counter()
-            if i == cfg.handopt_start_step:
+            tag, phase = _phase_at(cfg, i)
+            if phase == "hand":
                 hand, curve, renders = self._hand_phase(hand, targets, snapshot=dumps)
-                tag, phase = "hand", "hand"
-            elif i == cfg.handopt_start_step + 1:
+            elif phase == "obj":
                 obj, noise_pred, curve, renders = self._obj_phase(
                     obj, noise_pred, latents, targets, sched, i, snapshot=dumps)
-                tag, phase = "obj", "obj"
-            elif i >= cfg.handopt_start_step + 2:
+            elif phase == "joint":
                 hand, obj, noise_pred, curve, renders = self._joint_phase(
                     hand, obj, noise_pred, latents, targets, sched, i, near_end=i >= n - 3,
                     snapshot=dumps)
-                tag, phase = f"joint_{i}", "joint"
-            else:
-                tag = None
             if tag is not None:
                 _sync(dev)
                 seconds[phase] += time.perf_counter() - t0
@@ -643,6 +655,95 @@ class GuidedSampler:
 
         return GuidanceResult(latents=latents, noise_pred=noise_pred, hand=hand, obj=obj,
                               losses=loss_log, seconds=seconds)
+
+    def run_batch(
+        self,
+        cond_main: torch.Tensor,     # [B,1,M,C]
+        uncond_main: torch.Tensor,   # [B,1,M,C]
+        targets: Sequence[GuidanceTargets],
+        latent_shape: Tuple[int, int],
+        initial_noise: Optional[torch.Tensor] = None,            # [B,1,*latent_shape]
+        generators: Optional[Sequence[torch.Generator]] = None,  # one per image
+        device: DeviceLike = "cuda",
+        debugs: Optional[Sequence] = None,                       # a DebugDir per image
+    ) -> GuidanceResult:
+        """The guided loop over B images at once. Each image keeps its own
+        targets, and with them its own field of view; its initial latents are
+        its slice of ``initial_noise`` or a draw from its generator, as
+        ``run`` draws them. The DiT runs once a step for all images (batch
+        2B with the guidance pairs) and the CFG scale decays as in ``run``.
+        The optimization phases of a step run image by image, in turn: where
+        the reference maps them over the batch, these size their buffers from
+        counts read back to the host, and batching them waits for static
+        capacities (ROADMAP 2.E part 1). Capacity warnings carry "(batched)".
+        -> a GuidanceResult whose leaves lead with B; ``losses[tag]`` is
+        [B, iterations]."""
+        cfg = self.config
+        dev = resolve_device(device)
+        n = cfg.num_inference_steps
+        B = cond_main.shape[0]
+        sched = self._schedule(n)
+        if initial_noise is not None:
+            latents = initial_noise.to(dev, torch.float32).reshape(B, *latent_shape)
+        else:
+            latents = torch.cat([torch.randn((1, *latent_shape), generator=gen, device=dev)
+                                 for gen in generators])
+        targets = [t.to(dev) for t in targets]
+        debugs = list(debugs) if debugs is not None else [None] * B
+        dumps = [d is not None and d.enabled for d in debugs]
+        hands = [init_pose(dev) for _ in range(B)]
+        objs = [init_pose(dev) for _ in range(B)]
+        # [cond of every image; uncond of every image] against [latents; latents]
+        cond_cat = torch.cat([cond_main[:, 0], uncond_main[:, 0]], dim=0).to(dev)
+
+        loss_log: dict = {}
+        seconds: dict = {"dit_steps": [], "hand": 0.0, "obj": 0.0, "joint": 0.0}
+        noise_pred = torch.zeros_like(latents)
+        for i in range(n):
+            _sync(dev)
+            t0 = time.perf_counter()
+            noise_pred = cfg_noise_pred(
+                self.dit, cond_cat, latents, sched.timesteps[i] / sched.num_train_timesteps,
+                _guidance_scale(cfg, i, n))
+            _sync(dev)
+            seconds["dit_steps"].append(time.perf_counter() - t0)
+
+            tag, phase = _phase_at(cfg, i)
+            if tag is not None:
+                t0 = time.perf_counter()
+                curves, merged, preds = [], {}, []
+                for b in range(B):
+                    noise_b, lat_b = noise_pred[b:b + 1], latents[b:b + 1]
+                    if phase == "hand":
+                        hands[b], curve, renders = self._hand_phase(hands[b], targets[b],
+                                                                    snapshot=dumps[b])
+                    elif phase == "obj":
+                        objs[b], noise_b, curve, renders = self._obj_phase(
+                            objs[b], noise_b, lat_b, targets[b], sched, i, snapshot=dumps[b])
+                    else:
+                        hands[b], objs[b], noise_b, curve, renders = self._joint_phase(
+                            hands[b], objs[b], noise_b, lat_b, targets[b], sched, i,
+                            near_end=i >= n - 3, snapshot=dumps[b])
+                    preds.append(noise_b)
+                    curves.append(curve)
+                    if dumps[b]:
+                        _debug_log_phase(debugs[b], tag, curve, renders)
+                    for name, values in renders.items():
+                        merged.setdefault(name, []).extend(values)
+                noise_pred = torch.cat(preds)
+                _sync(dev)
+                seconds[phase] += time.perf_counter() - t0
+                loss_log[tag] = torch.stack(curves)
+                self._warn_capacity(f"{tag} (batched)", merged)
+
+            latents = step(sched, i, noise_pred, latents)[0]
+
+        def stacked(poses):
+            return PoseParams(*(torch.stack(x) for x in zip(*poses)))
+
+        return GuidanceResult(latents=latents[:, None], noise_pred=noise_pred[:, None],
+                              hand=stacked(hands), obj=stacked(objs), losses=loss_log,
+                              seconds=seconds)
 
     @torch.no_grad()
     def _debug_mesh_dump(self, debug, tag, noise_pred, latents, sched, step_i):

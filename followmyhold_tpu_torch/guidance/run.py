@@ -16,14 +16,17 @@ outputs, the same skip-and-continue, task-list sharding and flags. Per image:
    removal, face reduction, the PLY writes.
 
 ``run`` overlaps one image's export (host-bound) with the next image's
-sampler in a one-worker pool, as the reference does. Batched runs
-(``run_batch_images``, ``_run_batched``, ``GuidedSampler.run_batch``) are not
-ported: ``batch_size > 1`` raises.
+sampler in a one-worker pool, as the reference does. With ``batch_size > 1``
+(``--batch_size``) it groups the images into batches (``_run_batched``), and
+``run_batch_images`` takes each batch through one ``GuidedSampler.run_batch``
+(the DiT once a step for the batch, the phases image by image) and the
+exports through a two-worker pool, so that one image's host extraction
+overlaps the other's device decode.
 
     python -m followmyhold_tpu_torch.guidance.run --project_root R \\
         --cropped_obj_img_dir ... --mask_dir ... --moge_out_dir ... \\
         --hunyuan_hoi_mesh_dir ... --hamer_out_dir ... --h2m_rt_dir ... \\
-        --aligned_mano_dir ... --guidance_out_dir ... [--device cuda]
+        --aligned_mano_dir ... --guidance_out_dir ... [--batch_size 2] [--device cuda]
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import argparse
 import json
 import os
 import traceback
-from typing import List, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,7 +44,12 @@ from PIL import Image
 
 from followmyhold_tpu_torch.configs.guidance import OptimizationConfig
 from followmyhold_tpu_torch.configs.profiles import guidance_mesh_caps, optimization_config
-from followmyhold_tpu_torch.diffusion.guidance import GuidanceTargets, GuidedSampler
+from followmyhold_tpu_torch.diffusion.guidance import (
+    GuidanceResult,
+    GuidanceTargets,
+    GuidedSampler,
+    PoseParams,
+)
 from followmyhold_tpu_torch.geometry.hunyuan import build_models, encode_condition
 from followmyhold_tpu_torch.geometry.postprocess import (
     reduce_faces,
@@ -209,6 +218,62 @@ def run_hunyuan_w_guid(
     return _export()
 
 
+def run_batch_images(image_jobs: Sequence[dict], config: OptimizationConfig, models,
+                     j_regressor: Optional[np.ndarray] = None, device: DeviceLike = "cuda"):
+    """Several images through the stage at once: per image ``build_targets``
+    (with its own field of view), ``encode_condition`` and the initial noise
+    of its own stage stream, as ``run_hunyuan_w_guid`` draws it; then one
+    ``GuidedSampler.run_batch``; then the exports through a two-worker pool
+    (the native library's calls release the interpreter lock, so one image's
+    host extraction overlaps the other's device decode). ``image_jobs`` are
+    dicts of ``run_hunyuan_w_guid``'s path arguments and ``fovx``. -> each
+    image's ``_export_and_write`` result."""
+    dev = resolve_device(device)
+    dit, vae, cond = models
+    if j_regressor is None:
+        j_regressor = load_mano(device="cpu").j_regressor.numpy()
+
+    cameras, targets, conds, unconds, generators, debugs = [], [], [], [], [], []
+    for job in image_jobs:
+        hand_mask = _load_mask(job["cropped_hand_mask_path"])
+        obj_mask = _load_mask(job["cropped_obj_mask_path"])
+        H, W = hand_mask.shape
+        camera = GuidanceCamera(height=H, width=W, fov_deg=float(job["fovx"]))
+        cameras.append(camera)
+        targets.append(build_targets(
+            camera, job["aligned_mano_mesh_path"], job["T_h2m_path"], job["moge_mesh_path"],
+            hand_mask, obj_mask, job["hamer_for_guid_path"], j_regressor, device=dev))
+        rgba = np.asarray(Image.open(job["cropped_obj_img_path"]).convert("RGBA"))
+        cond_main, uncond_main = encode_condition(cond, rgba, device=dev)
+        conds.append(cond_main)
+        unconds.append(uncond_main)
+        image_id = os.path.basename(job["cropped_obj_img_path"]).split("_")[0]
+        generators.append(stage_generator(SEED_GUIDANCE, "guidance", image_id, dev))
+        debugs.append(DebugDir(f"exp_obj{image_id}_inpainted"))
+
+    # the crops share their size; each image's field of view rides in its targets
+    sampler = GuidedSampler(dit=dit, vae=vae, camera=cameras[0], config=config,
+                            scheduler_shift=scheduler_shift(), **guidance_mesh_caps())
+    result = sampler.run_batch(torch.stack(conds), torch.stack(unconds), targets,
+                               (vae.cfg.num_latents, vae.cfg.embed_dim), generators=generators,
+                               device=dev, debugs=debugs)
+
+    def export_one(b: int, job: dict):
+        res = GuidanceResult(latents=result.latents[b], noise_pred=result.noise_pred[b],
+                             hand=PoseParams(*(x[b] for x in result.hand)),
+                             obj=PoseParams(*(x[b] for x in result.obj)))
+        return _export_and_write(sampler, res, targets[b], config, job["cropped_obj_img_path"],
+                                 job["save_path_obj"], job["save_path_hand"], device=dev)
+
+    try:
+        with ThreadPoolExecutor(max_workers=min(2, len(image_jobs))) as pool:
+            futures = [pool.submit(export_one, b, job) for b, job in enumerate(image_jobs)]
+            return [f.result() for f in futures]
+    finally:
+        for debug in debugs:
+            debug.close()
+
+
 def _load_task_list(task_list_file: Optional[str], cropped_obj_img_dir: str) -> List[str]:
     """The images of this task: chunk ``SLURM_ARRAY_TASK_ID`` of a JSON task
     list, or every file of the crop directory."""
@@ -223,6 +288,44 @@ def _report_failure(what: str, exc: BaseException) -> None:
     """Print an image's failure with its traceback and carry on."""
     print(f"Error in processing {what} : {exc}")
     traceback.print_exception(type(exc), exc, exc.__traceback__)
+
+
+def _job_paths(name: str, cropped_obj_img_dir: str, mask_dir: str, moge_out_dir: str,
+               hunyuan_hoi_mesh_dir: str, hamer_out_dir: str, h2m_rt_dir: str,
+               aligned_mano_dir: str, guidance_out_dir: str) -> dict:
+    """The files of one image: ``run_hunyuan_w_guid``'s path arguments, its
+    fov.json and its id."""
+    image_id = name.split("_")[0]
+    moge_dir = os.path.join(moge_out_dir, f"{image_id}_cropped_hoi")
+    return dict(
+        cropped_obj_img_path=os.path.join(cropped_obj_img_dir, name),
+        cropped_hand_mask_path=os.path.join(mask_dir, f"{image_id}_cropped_hand_mask.png"),
+        cropped_obj_mask_path=os.path.join(mask_dir, f"{image_id}_cropped_obj_mask.png"),
+        moge_mesh_path=os.path.join(moge_dir, "mesh.ply"),
+        moge_fov_path=os.path.join(moge_dir, "fov.json"),
+        T_h2m_path=os.path.join(h2m_rt_dir, f"{image_id}_hoi_mesh.npy"),
+        aligned_mano_mesh_path=os.path.join(aligned_mano_dir,
+                                            f"{image_id}_hamer_aligned_mano.ply"),
+        hamer_for_guid_path=os.path.join(hamer_out_dir, f"{image_id}_kps_for_guidance.npy"),
+        hunyuan_hoi_mesh_path=os.path.join(hunyuan_hoi_mesh_dir, f"{image_id}_hoi_mesh.ply"),
+        save_path_obj=os.path.join(guidance_out_dir, f"{image_id}_obj.ply"),
+        save_path_hand=os.path.join(guidance_out_dir, f"{image_id}_hand.ply"),
+        image_id=image_id,
+    )
+
+
+def _read_fovx(job: dict) -> float:
+    with open(job["moge_fov_path"], "r", encoding="utf-8") as f:
+        return float(json.load(f)["fov_x"])
+
+
+def _masks_empty(job: dict) -> bool:
+    return not (_load_mask(job["cropped_hand_mask_path"]).any()
+                and _load_mask(job["cropped_obj_mask_path"]).any())
+
+
+def _done(job: dict) -> bool:
+    return os.path.exists(job["save_path_obj"]) and os.path.exists(job["save_path_hand"])
 
 
 def run(
@@ -241,23 +344,24 @@ def run(
     batch_size: int = 1,
     device: DeviceLike = "cuda",
 ) -> None:
-    """Every assigned image through the stage; an image whose outputs exist,
-    or whose masks are empty, is skipped, and a failing image is reported
-    (with its traceback) without stopping the others."""
-    if batch_size > 1:
-        raise NotImplementedError(
-            "batched guidance (run_batch_images, _run_batched, GuidedSampler.run_batch) is "
-            "not ported yet; run with batch_size=1")
+    """Every assigned image through the stage, one at a time or, with
+    ``batch_size > 1``, in batches; an image whose outputs exist, or whose
+    masks are empty, is skipped, and a failing image (or batch) is reported
+    with its traceback without stopping the others."""
     dev = resolve_device(device)
     config = optimization_config()
     os.makedirs(guidance_out_dir, exist_ok=True)
     assigned = _load_task_list(task_list_file, cropped_obj_img_dir)[shard_index::shard_count]
+    dirs = (cropped_obj_img_dir, mask_dir, moge_out_dir, hunyuan_hoi_mesh_dir, hamer_out_dir,
+            h2m_rt_dir, aligned_mano_dir, guidance_out_dir)
 
     models = build_models(device=dev)
     j_reg_path = os.path.join(hamer_out_dir, "J_regressor_hamer.npy")
     j_regressor = np.load(j_reg_path) if os.path.exists(j_reg_path) else None
 
-    from concurrent.futures import ThreadPoolExecutor
+    if batch_size > 1:
+        _run_batched(assigned, batch_size, config, models, j_regressor, dirs, dev)
+        return
 
     pool = ThreadPoolExecutor(max_workers=1)
     prev = None        # (image_id, export future)
@@ -275,39 +379,20 @@ def run(
 
     for name in assigned:
         try:
-            path = os.path.join(cropped_obj_img_dir, name)
-            image_id = name.split("_")[0]
-            hand_mask_path = os.path.join(mask_dir, f"{image_id}_cropped_hand_mask.png")
-            obj_mask_path = os.path.join(mask_dir, f"{image_id}_cropped_obj_mask.png")
-            moge_dir = os.path.join(moge_out_dir, f"{image_id}_cropped_hoi")
-            save_obj = os.path.join(guidance_out_dir, f"{image_id}_obj.ply")
-            save_hand = os.path.join(guidance_out_dir, f"{image_id}_hand.ply")
-
-            if os.path.exists(save_obj) and os.path.exists(save_hand):
+            job = _job_paths(name, *dirs)
+            image_id = job.pop("image_id")
+            if _done(job):
                 print(f"{image_id} already exists, skipping")
                 continue
-            with open(os.path.join(moge_dir, "fov.json"), "r", encoding="utf-8") as f:
-                fovx = float(json.load(f)["fov_x"])
-            if not (_load_mask(hand_mask_path).any() and _load_mask(obj_mask_path).any()):
+            fovx = _read_fovx(job)
+            if _masks_empty(job):
                 print(f"Skipping {image_id} due to empty mask")
                 continue
 
             print(f"Processing {image_id}")
-            fut = run_hunyuan_w_guid(
-                cropped_obj_img_path=path, fovx=fovx,
-                hamer_for_guid_path=os.path.join(hamer_out_dir,
-                                                 f"{image_id}_kps_for_guidance.npy"),
-                aligned_mano_mesh_path=os.path.join(
-                    aligned_mano_dir, f"{image_id}_hamer_aligned_mano.ply"),
-                cropped_obj_mask_path=obj_mask_path,
-                cropped_hand_mask_path=hand_mask_path,
-                moge_mesh_path=os.path.join(moge_dir, "mesh.ply"),
-                T_h2m_path=os.path.join(h2m_rt_dir, f"{image_id}_hoi_mesh.npy"),
-                hunyuan_hoi_mesh_path=os.path.join(hunyuan_hoi_mesh_dir,
-                                                   f"{image_id}_hoi_mesh.ply"),
-                save_path_obj=save_obj, save_path_hand=save_hand,
-                config=config, models=models, j_regressor=j_regressor,
-                export_pool=pool, device=dev)
+            job.pop("moge_fov_path")
+            fut = run_hunyuan_w_guid(**job, fovx=fovx, config=config, models=models,
+                                     j_regressor=j_regressor, export_pool=pool, device=dev)
             # the previous image's export ran behind this image's sampler
             _finish(prev)
             prev = (image_id, fut)
@@ -317,6 +402,44 @@ def run(
 
     _finish(prev)
     pool.shutdown(wait=True)
+    print("Finished processing all images")
+
+
+# the files an image of a batch must have
+_NEEDED = ("cropped_hand_mask_path", "cropped_obj_mask_path", "moge_mesh_path", "moge_fov_path",
+           "T_h2m_path", "aligned_mano_mesh_path", "hamer_for_guid_path")
+
+
+def _run_batched(assigned: Sequence[str], batch_size: int, config: OptimizationConfig, models,
+                 j_regressor: Optional[np.ndarray], dirs: Sequence[str],
+                 device: DeviceLike = "cuda") -> None:
+    """The runnable images (outputs missing, every input present, masks not
+    empty) through ``run_batch_images`` in batches of ``batch_size``; a
+    failing batch is reported with its traceback and the next one runs."""
+    pending = []
+    for name in assigned:
+        job = _job_paths(name, *dirs)
+        if _done(job):
+            print(f"{job['image_id']} already exists, skipping")
+            continue
+        if not all(os.path.exists(job[k]) for k in _NEEDED):
+            print(f"Skipping {job['image_id']}: missing artifacts")
+            continue
+        if _masks_empty(job):
+            print(f"Skipping {job['image_id']} due to empty mask")
+            continue
+        job["fovx"] = _read_fovx(job)
+        pending.append(job)
+
+    for i in range(0, len(pending), batch_size):
+        batch = pending[i:i + batch_size]
+        ids = [job["image_id"] for job in batch]
+        try:
+            print("Batch:", ids)
+            run_batch_images(batch, config, models, j_regressor, device=device)
+        except Exception as e:
+            print(f"Error in batch {ids}: {e}")
+            traceback.print_exception(type(e), e, e.__traceback__)
     print("Finished processing all images")
 
 
@@ -335,7 +458,7 @@ def main() -> None:
     parser.add_argument("--shard_index", type=int, default=0)
     parser.add_argument("--shard_count", type=int, default=1)
     parser.add_argument("--batch_size", type=int, default=1,
-                        help="images per sampler run (only 1 is ported)")
+                        help="images per sampler run")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
     run(args.project_root, args.cropped_obj_img_dir, args.mask_dir, args.moge_out_dir,

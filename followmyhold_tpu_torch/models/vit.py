@@ -1,7 +1,7 @@
 """Vision transformer encoder in PyTorch: the DINOv2 path and HaMeR's ViT-H.
 
 Counterpart of followmyhold_tpu/models/vit.py, which serves HaMeR's ViT-H/16,
-MoGe's DINOv2-L/14 and the Hunyuan conditioner's DINOv2-G/14. HaMeR's
+MoGe's DINOv2-L/14 (``DINOV2_VIT_L``) and the Hunyuan conditioner's DINOv2-G/14. HaMeR's
 backbone (``HAMER_VIT_H``, ``ViTFeatureMap``) pads its patch convolution by
 2 px and adds the position embedding's cls slot to every patch token; its
 192 tokens at head size 80 take the plain attention, as in the reference
@@ -16,8 +16,8 @@ Numerics kept from the reference: LayerNorm in float32 with epsilon 1e-6
 (Flax's default, not torch's 1e-5), cast back to the activation type; the
 layerscale gammas are float32 parameters cast to the activation type; GELU is
 exact; attention goes through ``ops.attention.multi_head_attention``, so the
-flash-attention kernel serves the long sequences (DINOv2-G's 1,370 tokens at
-head size 64).
+flash-attention kernel serves the long sequences (DINOv2-G's 1,370 tokens and
+DINOv2-L's 3,601 on MoGe's 60x60 grid, both at head size 64).
 """
 
 from __future__ import annotations
@@ -70,6 +70,13 @@ class ViTConfig:
 
 
 HAMER_VIT_H = ViTConfig(patch_padding=2, pos_embed_cls_slot=True)
+
+# MoGe's encoder: 37x37 position embeddings, resized to the crop's grid (60x60
+# on a 512^2 crop at resolution level 9) with DINOv2's offset
+DINOV2_VIT_L = ViTConfig(
+    img_size=(518, 518), patch_size=14, embed_dim=1024, depth=24, num_heads=16,
+    use_cls_token=True, layerscale_init=1e-5, pos_interp_offset=0.1,
+)
 
 
 class Attention(nn.Module):

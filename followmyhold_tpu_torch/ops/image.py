@@ -1,5 +1,5 @@
-"""Image resampling: the affine patch crop, and a resize with the semantics
-of ``jax.image.resize(..., "cubic")``.
+"""Image resampling: the affine patch crop, and resizes with the semantics
+of ``jax.image.resize`` (cubic, linear, nearest).
 
 Counterpart of followmyhold_tpu/ops/image.py. The patch crop (HaMeR's
 ViTDetDataset crop) maps a source box onto the output patch by the similarity
@@ -16,7 +16,12 @@ are dropped, not clamped), and antialiasing: when downsampling, the kernel
 widens by the inverse scale. ``torch.nn.functional.interpolate(mode="bicubic")``
 differs on every one of these points (a = -0.75, clamped taps, no widening),
 so the resize here is two explicit separable weight matrices, computed in
-float32 as the reference computes them.
+float32 as the reference computes them. MoGe's linear resize is the same
+construction with a triangle kernel: it upsamples the crop to the encoder's
+grid (512 -> 840) and downsamples every head's output (960 -> 512), where the
+widened triangle is not ``interpolate(mode="bilinear")``. Its nearest resize
+samples source floor((i + 0.5) * in / out), torch's ``"nearest-exact"``, not
+``"nearest"`` (which takes floor(i * in / out)).
 """
 
 from __future__ import annotations
@@ -38,15 +43,21 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
     return np.where(x >= two, np.float32(0.0), out).astype(np.float32)
 
 
-def cubic_resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """[in_size, out_size] float32 weights: output j = sum_i x[i] * W[i, j]."""
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """The linear resize's kernel, max(0, 1 - |x|), in float32."""
+    return np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x)).astype(np.float32)
+
+
+def resize_weights(in_size: int, out_size: int, kernel) -> np.ndarray:
+    """[in_size, out_size] float32 weights of ``jax.image.resize`` with
+    ``kernel`` (the Keys cubic or the triangle): output j = sum_i x[i] * W[i, j]."""
     inv_scale = 1.0 / (out_size / in_size)   # a Python float there too, rounded once
     kernel_scale = np.float32(max(inv_scale, 1.0))
     inv_scale = np.float32(inv_scale)
     sample = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale
               - np.float32(0.0) * inv_scale - np.float32(0.5))
     x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
-    w = _keys_cubic(x.astype(np.float32))
+    w = kernel(x.astype(np.float32))
     total = w.sum(axis=0, keepdims=True, dtype=np.float32)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
                  w / np.where(total != 0, total, np.float32(1.0)), np.float32(0.0))
@@ -54,18 +65,47 @@ def cubic_resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
 
 
-def resize_cubic(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """[B, H, W, C] -> [B, height, width, C], float32, as
-    ``jax.image.resize(image, (B, height, width, C), "cubic")``. An axis whose
-    size does not change is left as it is, as there."""
-    x = image.float()
+def _resize_hw(x: torch.Tensor, height: int, width: int, kernel) -> torch.Tensor:
+    """[B, H, W, C] -> [B, height, width, C] in x's dtype, the weights cast
+    to it as ``jax.image.resize`` casts them. An axis whose size does not
+    change is left as it is, as there."""
     B, H, W, C = x.shape
     if H != height:
-        wy = torch.from_numpy(cubic_resize_weights(H, height)).to(x.device)
+        wy = torch.from_numpy(resize_weights(H, height, kernel)).to(x.device, x.dtype)
         x = torch.einsum("bhwc,hk->bkwc", x, wy)
     if W != width:
-        wx = torch.from_numpy(cubic_resize_weights(W, width)).to(x.device)
+        wx = torch.from_numpy(resize_weights(W, width, kernel)).to(x.device, x.dtype)
         x = torch.einsum("bhwc,wk->bhkc", x, wx)
+    return x
+
+
+def resize_cubic(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, height, width, C], float32, as
+    ``jax.image.resize(image, (B, height, width, C), "cubic")``."""
+    return _resize_hw(image.float(), height, width, _keys_cubic)
+
+
+def resize_linear(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """[B, H, W, C] floating -> [B, height, width, C] in its dtype, as
+    ``jax.image.resize(image, (B, height, width, C), "linear")`` (antialiased)."""
+    return _resize_hw(image, height, width, _triangle)
+
+
+def nearest_indices(in_size: int, out_size: int) -> np.ndarray:
+    """The source index of each output of the nearest resize,
+    floor((i + 0.5) * in / out) in float32, as ``jax.image.resize`` takes it."""
+    offsets = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * np.float32(in_size)
+               / np.float32(out_size))
+    return np.floor(offsets.astype(np.float32)).astype(np.int64)
+
+
+def resize_nearest(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.image.resize(x, shape, "nearest")``: every axis whose size
+    changes is sampled at ``nearest_indices``."""
+    for d, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+        if n_in != n_out:
+            idx = torch.from_numpy(nearest_indices(n_in, n_out)).to(x.device)
+            x = x.index_select(d, idx)
     return x
 
 

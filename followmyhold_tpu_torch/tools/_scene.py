@@ -56,6 +56,31 @@ def moge_grid_mesh(rows: int, cols: int, size: int, fov_deg: float, seed: int = 
     return verts, faces.astype(np.int32)
 
 
+def moge_scene(height: int, width: int, fov_deg: float = 60.0, z_shift: float = 1.5):
+    """A point map as MoGe predicts one for an HOI crop, and its mask
+    probability: an object 1 m in front of a tilted background 3 m away,
+    seen at ``fov_deg`` horizontally, with a strip of invalid pixels along
+    the top. Its z is shifted by ``-z_shift`` (MoGe's points are known up to
+    a z shift), so that ``recover_focal_shift`` has a shift and a focal to
+    find: z_shift and the focal of ``fov_deg``. Random weights give a point
+    map without either (its focal fit has a flat cost); the GPU smoke run and
+    the MoGe parity tests blend this scene into the head outputs.
+    -> (points [H,W,3] float32, mask probability [H,W] float32)."""
+    from followmyhold_tpu_torch.models.moge import normalized_view_plane_uv
+
+    aspect = width / height
+    uv = normalized_view_plane_uv(height, width).numpy().astype(np.float64)
+    u, v = uv[..., 0], uv[..., 1]
+    focal = aspect / (1 + aspect ** 2) ** 0.5 / np.tan(np.radians(fov_deg) / 2)
+    depth = 3.0 + 0.4 * v
+    box = (np.abs(u) < 0.2) & (np.abs(v - 0.05) < 0.25)
+    depth = np.where(box, 2.0 + 0.3 * u, depth)
+    points = np.stack([u * depth / focal, v * depth / focal, depth - z_shift], axis=-1)
+    span_y = 1 / (1 + aspect ** 2) ** 0.5
+    mask = np.where(v < -0.8 * span_y, 0.05, 0.95)
+    return points.astype(np.float32), mask.astype(np.float32)
+
+
 def _write_hoi_crops(dirs: dict, image_id: str, is_right: bool, size: int, moge_grid,
                      fov_deg: float, seed: int) -> None:
     """One image's inputs of stages 5-8 that no ported stage makes: the HOI

@@ -8,8 +8,8 @@ reads and writes) against the JAX package, on synthetic artifacts.
   injected (threefry's draws cannot be reproduced): both write the two PLYs,
   and they agree.
 - ``run``'s skip-and-continue (outputs present, an empty mask, a failing
-  image and a failing export, both reported with their tracebacks), and
-  ``batch_size > 1`` refused.
+  image and a failing export, both reported with their tracebacks); its
+  batched runs are tested in test_torch_guidance_batch.
 - ``load_mano`` on a synthetic pickle holding a chumpy-like array; the mesh
   IO round trips, read by both packages; ``pad_mesh``'s warning.
 
@@ -226,11 +226,6 @@ def test_run_reports_failures_with_their_tracebacks(tmp_path, monkeypatch, capsy
     assert printed.count("Traceback (most recent call last)") == 2
     assert 'raise ValueError("export broke")' in printed
     assert "Finished processing all images" in printed
-
-
-def test_run_refuses_batches(tmp_path):
-    with pytest.raises(NotImplementedError, match="run_batch_images"):
-        TR.run(str(tmp_path), *(str(tmp_path),) * 8, batch_size=2, device="cpu")
 
 
 def test_load_mano_reads_a_pickle_with_chumpy_arrays(tmp_path, monkeypatch):
