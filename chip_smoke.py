@@ -17,7 +17,21 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             Also the deterministic scatter-add behind every gather's gradient
             (ops/indexing.scatter_rows_add): no host sync, same bits in two
             calls, timed beside the atomic index_add_ it replaced.
-4. stages   stages 4-8 on two synthetic HOI crops (write_stage_inputs' hoi_ids; a
+4. inpaint  stage 3 first, as the pipeline runs it: preprocess/inpaint.run on the two
+            synthetic HOI crops and hand masks that stages 4-8 use, with FLUX.1-Kontext-dev,
+            the FLUX VAE, CLIP-L and T5-XXL at full width and depth (bf16, seeded random
+            weights built on the card, ~31.5 GiB) and synthetic tokenizer vocabularies, so
+            that the prompt takes the checkpoint's path (77 CLIP and 512 T5 ids): 28 steps
+            an image with K1 at [1,24,2560,128], 57 launches a step. Its own launch counts;
+            each {id}_inpainted_{rid}.png checked; the final latents finite; two 2-step
+            kontext_edit calls must give the same bits; one full-width transformer forward
+            with K1 held against the plain attention; s per image by part (tokenizing, T5
+            and CLIP, VAE encode, the steps and the median step, VAE decode, the PNG) and
+            peak memory. The models are freed before stage 4; then one step's device-busy
+            share under torch.profiler, with K1's and the GEMM library's shares, in a child
+            process (tools/profile_inpaint.py --step-only): the profiler would slow the
+            host-bound stages after it in this one (tools/profiler_aftereffect.py).
+5. stages   stages 4-8 on two synthetic HOI crops (write_stage_inputs' hoi_ids; a
             left and a right hand), as a user runs them, with the full-width models.
             First stage 4, geometry/moge.run on the crops without background:
             MoGe with DINOv2-L (24 x 1024, bf16) and the published neck and heads at
@@ -35,7 +49,7 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             render, and feeds image 0's files, stage 4's mesh and field of view
             among them, to guidance/run.build_targets (its time and transient
             memory).
-5. main     the guidance stage on one image, as a user runs it: guidance/run.py's
+6. main     the guidance stage on one image, as a user runs it: guidance/run.py's
             run_hunyuan_w_guid on synthetic artifacts (a 512^2 crop, masks, a 384x512
             MoGe grid mesh, the synthetic hand, keypoints), with the full-width
             Hunyuan3D-2 DiT, ShapeVAE and DINOv2-G conditioner on seeded random
@@ -51,16 +65,16 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             tets on the host), floaters, degenerate faces, face reduction, and the
             two PLYs. The kernels' launch counts are set to 0 just before the stage
             and read just after; it prints s per image split by part.
-6. batch    the guidance stage on two images in one batch: guidance/run.run with
+7. batch    the guidance stage on two images in one batch: guidance/run.run with
             batch_size=2 over two scenes at 50 and 70 degrees, with the same models
             and the default config (GuidedSampler.run_batch: the DiT at batch 4, the
             phases image by image; the exports two at once), with its own launch
             counts; checks all four PLYs, that the two poses differ, and each
             image's batched DiT prediction against its batch-2 one.
-7. result   a `kernels` JSON line (`launches`: the guidance stage's run of one
-            image; `launches_stage_4`, `launches_stages_5_8`, `launches_batched`: the
-            runs of stage 4, of stages 5-8 and of the batched stage), the nvidia-smi
-            line, and the `ok` JSON line.
+8. result   a `kernels` JSON line (`launches`: the guidance stage's run of one
+            image; `launches_stage_3`, `launches_stage_4`, `launches_stages_5_8`,
+            `launches_batched`: the runs of stage 3, of stage 4, of stages 5-8 and of the
+            batched stage), the nvidia-smi line, and the `ok` JSON line.
 
 Tolerances, and why:
 - flash attention O (bf16): 1e-2 * max|ref| + 1e-3. The kernel rounds the
@@ -94,6 +108,11 @@ Tolerances, and why:
   attention||_F <= 2^-6 ||plain||_F. Each layer's attention differs by K1's
   ~2.9e-3 and the differences compound through the residual stream; measured
   7.8e-3 on one H100, and the limit is twice that.
+- stage 3's transformer (bf16, 57 blocks, at its first step on image 0):
+  ||with K1 - with the plain attention||_F <= 2.5e-2 ||plain||_F, twice the
+  1.25e-2 measured on one H100 (each block's attention differs by K1's
+  ~2.9e-3, compounding through the residual stream). Two 2-step kontext_edit
+  calls on the same inputs must give the same bits (no atomics on the path).
 - rasterizer forward: winner slots must agree on all but 0.1 % of the pixels
   (the arithmetic is bit-identical by construction; the margin is for depth
   ties, and for the kernels' cull: they skip the (pixel, face) pairs beyond a
@@ -190,6 +209,7 @@ def check_flash_attention(dev) -> dict:
         ("dit_batch", 4, 16, 4442, 4442, 128),   # the Hunyuan stage: two images with CFG
         ("cond_self", 1, 24, 1370, 1370, 64),  # DINOv2-G's 40 self-attentions (ragged)
         ("moge_self", 1, 16, 3601, 3601, 64),  # MoGe's DINOv2-L, 24 a crop (ragged)
+        ("flux_joint", 1, 24, 2560, 2560, 128),  # FLUX.1-Kontext, 57 a step (stage 3)
         ("ragged", 1, 16, 3000, 2900, 64),   # the kv mask, zero-filled rows, rows past N
         ("d80", 1, 16, 1024, 1024, 80),      # head sizes padded to 128 by the wrapper
         ("d72", 1, 16, 1024, 1024, 72),
@@ -961,6 +981,187 @@ def _stage5_level(dev, models, image_dir: str) -> dict:
     if min(shares) <= 0.0:
         fail(f"stage 5's field has no surface for one of {HOI_IDS}: inside shares {shares}")
     return dict(level=level, inside_shares=shares)
+
+
+# stage 3's full-width transformer forward with K1 against the same forward with the
+# plain attention: measured 1.25e-2 relative (one H100 80GB HBM3 at 700 W: 57 blocks of
+# bf16 attention, K1's per-call 2.9e-3 compounding through the residual stream); the
+# limit is twice that
+_FLUX_REL_LIMIT = 2.5e-2
+_INPAINT_PROMPT = "Remove hands but keep the object."
+
+
+def run_inpaint_stage(dev) -> dict:
+    """Stage 3 as a user runs it: preprocess/inpaint.run on the two HOI crops of
+    HOI_IDS with their hand masks (write_stage_inputs, as stages 4-8 get them),
+    with the FLUX.1-Kontext inpainter at full width and depth (build_inpainter:
+    FLUX.1-Kontext-dev, the FLUX VAE, CLIP-L and T5-XXL; bf16, seeded random
+    weights, built on the card) and synthetic tokenizer vocabularies
+    (tools._scene.write_flux_tokenizers), so the prompt takes the checkpoint's
+    path: [1,77] CLIP and [1,512] T5 ids, K1 at [1,24,2560,128]. The launch counts
+    are set to 0 just before the run and read just after. Checks each
+    {id}_inpainted_{rid}.png (512x512x3 uint8, not its input), the final latents
+    finite, 57 x 28 K1 launches an image and no other kernel, two 2-step
+    kontext_edit calls with the same bits, and one full-width transformer forward
+    with K1 against the same forward with the plain attention. Prints s per image
+    by part, the median step and peak memory. The models are freed before the
+    stages that follow, and one step's device-busy share, with K1's and the GEMM
+    library's shares, is profiled in a child process (_profile_flux_step)."""
+    import gc
+    import tempfile
+
+    from PIL import Image
+
+    from followmyhold_tpu_torch.models import flux as F
+    from followmyhold_tpu_torch.ops import _kernels
+    from followmyhold_tpu_torch.ops.attention import attention_plain
+    from followmyhold_tpu_torch.preprocess import inpaint as stage3
+    from followmyhold_tpu_torch.tools import profile_inpaint as P
+    from followmyhold_tpu_torch.tools._scene import write_flux_tokenizers, write_stage_inputs
+
+    root = tempfile.mkdtemp(prefix="fmh_stage3_")
+    d = write_stage_inputs(root, image_id=IMAGE_ID, size=512, moge_grid=(8, 8), hoi_ids=HOI_IDS)
+    assets_before = os.environ.get("FOHO_TPU_ASSETS")
+    os.environ["FOHO_TPU_ASSETS"] = os.path.join(root, "assets")
+    write_flux_tokenizers(os.environ["FOHO_TPU_ASSETS"])
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        inpainter = stage3.build_inpainter(seed=0, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_params = {name: round(sum(p.numel() for p in getattr(inpainter, name).parameters())
+                                / 1e9, 4) for name in ("transformer", "vae", "clip", "t5")}
+        say(f"inpaint: built FLUX.1-Kontext-dev + FLUX VAE + CLIP-L + T5-XXL at full width "
+            f"({n_params}, billions of parameters; "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card) in {build_s:.1f} s")
+
+        out_dir = os.path.join(root, "inpainted")
+        record, finite = {}, []
+        unpack = F.unpack_latents
+
+        def checked_unpack(tokens, h, w):      # the final latents of each image
+            finite.append(torch.isfinite(tokens).all())
+            return unpack(tokens, h, w)
+
+        F.unpack_latents = checked_unpack
+        try:
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with P.timed_parts(record):
+                stage3.run(out_dir, d["cropped_hoi_dir"], mask_dir=d["mask_dir"],
+                           models=inpainter, device=dev)
+            torch.cuda.synchronize()
+            stage_s = time.perf_counter() - t0
+            launches = _kernels.launch_counts()
+        finally:
+            F.unpack_latents = unpack
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        n = len(HOI_IDS)
+        parts = P.summarize_parts(record, n)
+        rest = stage_s / n - sum(parts[p] for p in P.PARTS)
+        n_blocks = F.FLUX_DEV.num_layers + F.FLUX_DEV.num_single_layers
+        n_steps = len(record["steps"]) // n
+        per_image = [sum(record["steps"][k * n_steps:(k + 1) * n_steps]) for k in range(n)]
+        say(f"inpaint: stage 3 (FLUX.1-Kontext, {n} images) {stage_s:.3f} s, "
+            f"{stage_s / n:.3f} s per image: tokenizing {parts['tokenize']:.4f}, T5 and CLIP "
+            f"{parts['text']:.4f}, VAE encode {parts['vae_encode']:.4f}, {n_steps} steps "
+            f"{parts['steps']:.4f} (median step {parts['step_median']:.4f}), VAE decode "
+            f"{parts['vae_decode']:.4f}, PNG {parts['png']:.4f}, reading, host copies and the "
+            f"rest {rest:.4f} s per image (the steps of each image: "
+            f"{', '.join(f'{x:.3f}' for x in per_image)} s; VAE encodes "
+            f"{', '.join(f'{x:.4f}' for x in record['vae_encode'])} s, the first pays one-time "
+            f"set-up); peak {peak_gib:.2f} GiB; launches {launches}")
+
+        want = {k: 0 for k in launches}
+        want["flash_attention_fwd"] = n_blocks * n_steps * n
+        if n_steps != 28 or launches != want:
+            fail(f"stage 3 ran {n_steps} steps an image and launched {launches}, expected 28 "
+                 f"steps and {want} ({n_blocks} K1 launches a step)")
+        if len(finite) != n or not all(bool(x) for x in finite):
+            fail(f"stage 3's final latents are not finite: {[bool(x) for x in finite]}")
+        outputs = {}
+        for k, image_id in enumerate(HOI_IDS):
+            path = os.path.join(out_dir, f"{image_id}_inpainted_{k % 2}.png")
+            if not os.path.exists(path):
+                fail(f"stage 3 wrote no {os.path.basename(path)}")
+            got = np.asarray(Image.open(path))
+            crop = np.asarray(Image.open(os.path.join(
+                d["cropped_hoi_dir"], f"{image_id}_cropped_hoi_{k % 2}.png")).convert("RGB"))
+            if got.shape != (512, 512, 3) or got.dtype != np.uint8 or np.array_equal(got, crop):
+                fail(f"stage 3's {os.path.basename(path)} is {got.shape} {got.dtype}, or equal "
+                     f"to its input")
+            outputs[image_id] = dict(mean=round(float(got.mean()), 2),
+                                     black=round(float((got == 0).mean()), 4),
+                                     white=round(float((got == 255).mean()), 4))
+        say(f"inpaint: both files are 512x512x3 uint8 and differ from their crops: {outputs}")
+
+        # two 2-step edits of image 0 on the same inputs give the same bits
+        crop = np.asarray(Image.open(os.path.join(
+            d["cropped_hoi_dir"], f"{IMAGE_ID}_cropped_hoi_0.png")).convert("RGB"))
+        inputs = P.step_inputs(inpainter, crop, _INPAINT_PROMPT)
+        x_in, t5, pooled = inputs[:3]
+        image = torch.from_numpy(crop.astype(np.float32))[None].to(dev) / 255.0
+        with torch.no_grad():
+            edits = [F.kontext_edit(inpainter.transformer, inpainter.vae, t5, pooled, image,
+                                    num_steps=2, initial_noise=x_in[:, :x_in.shape[1] // 2])
+                     for _ in range(2)]
+        if not torch.equal(*edits):
+            fail("two 2-step kontext_edit calls on the same inputs differ")
+
+        # the full-width forward with K1 against the same forward with the plain attention
+        with torch.no_grad():
+            with_k1 = inpainter.transformer(*inputs)
+            with_kernel = F.multi_head_attention
+            F.multi_head_attention = lambda q, k, v, device=None: attention_plain(
+                q, k, v, scale=1.0 / math.sqrt(q.shape[-1]))
+            try:
+                plain = inpainter.transformer(*inputs)
+            finally:
+                F.multi_head_attention = with_kernel
+        rel = _rel_err(with_k1, plain)
+        if not (math.isfinite(rel) and rel <= _FLUX_REL_LIMIT):
+            fail(f"the transformer with K1 differs from the plain attention's by {rel} relative "
+                 f"(limit {_FLUX_REL_LIMIT})")
+        say(f"inpaint: two 2-step kontext_edit calls give the same bits; the transformer "
+            f"{list(with_k1.shape)} with K1 against the plain attention: relative {rel:.3e} "
+            f"(limit {_FLUX_REL_LIMIT:.2e})")
+        del inpainter, inputs, x_in, t5, pooled, image, edits, with_k1, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        prof = _profile_flux_step(os.path.join(d["cropped_hoi_dir"],
+                                               f"{IMAGE_ID}_cropped_hoi_0.png"))
+    finally:
+        if assets_before is None:
+            os.environ.pop("FOHO_TPU_ASSETS", None)
+        else:
+            os.environ["FOHO_TPU_ASSETS"] = assets_before
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches, seconds=stage_s, parts=parts, rel=rel, peak_gib=peak_gib,
+                profile=prof)
+
+
+def _profile_flux_step(crop_path: str) -> dict:
+    """One full-width FLUX step on ``crop_path`` under torch.profiler, in a
+    process of its own (tools/profile_inpaint.py --step-only builds its own
+    models): a process that has run the profiler launches slower afterwards
+    (tools/profiler_aftereffect.py), and the stages that follow are timed on
+    the host. -> its numbers (busy share, K1's and the GEMM library's ms)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "followmyhold_tpu_torch.tools.profile_inpaint", "--step-only",
+         "--image", crop_path], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines or not lines[-1].startswith('{"profile"'):
+        fail(f"the profile of one FLUX step failed (code {out.returncode}): "
+             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    print("\n".join(lines[:-1]), flush=True)
+    prof = json.loads(lines[-1])["profile"]
+    if not prof["k1_ms"] > 0.0:
+        fail(f"the profiled FLUX step ran no K1: {prof}")
+    return prof
 
 
 # MoGe's random-weight head outputs are blended into a scene (see _shape_moge): the
@@ -1771,8 +1972,10 @@ def main() -> None:
 
     kernels = [check_flash_attention(dev), check_flash_attention_backward(dev),
                *check_rasterizer(dev)]
-    launches = launches_hoi = launches_moge = launches_batch = {k["name"]: 0 for k in kernels}
+    launches = launches_inpaint = launches_hoi = launches_moge = launches_batch = {
+        k["name"]: 0 for k in kernels}
     if not args.kernels_only:
+        launches_inpaint = run_inpaint_stage(dev)["launches"]
         ran = run_stage(dev)
         launches, hoi = ran["launches"], ran["hoi"]
         launches_hoi, launches_moge = hoi["launches"], hoi["moge"]["launches"]
@@ -1780,9 +1983,11 @@ def main() -> None:
         for k, overlay in zip(kernels[-3:-1], hoi["raster_overlay"]):
             k["overlay_mesh"] = overlay
     for k in kernels:
-        # launches: the guidance stage's run of one image; launches_stage_4, _stages_5_8
-        # and _batched: the runs of stage 4, of stages 5-8 and of the batched guidance
+        # launches: the guidance stage's run of one image; launches_stage_3, _stage_4,
+        # _stages_5_8 and _batched: the runs of stage 3, of stage 4, of stages 5-8 and of
+        # the batched guidance
         k["launches"] = launches[k["name"]]
+        k["launches_stage_3"] = launches_inpaint[k["name"]]
         k["launches_stage_4"] = launches_moge[k["name"]]
         k["launches_stages_5_8"] = launches_hoi[k["name"]]
         k["launches_batched"] = launches_batch[k["name"]]

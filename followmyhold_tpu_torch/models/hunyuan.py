@@ -61,10 +61,12 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -
 class LayerNormF32(nn.Module):
     """LayerNorm computed in float32, result cast to ``out_dtype``."""
 
-    def __init__(self, dim: int, affine: bool, out_dtype: torch.dtype, device=None):
+    def __init__(self, dim: int, affine: bool, out_dtype: torch.dtype, device=None,
+                 eps: float = _NORM_EPS):
         super().__init__()
         self.dim = dim
         self.out_dtype = out_dtype
+        self.eps = eps
         if affine:
             self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
             self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device))
@@ -73,7 +75,7 @@ class LayerNormF32(nn.Module):
             self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), (self.dim,), self.weight, self.bias, _NORM_EPS)
+        y = F.layer_norm(x.float(), (self.dim,), self.weight, self.bias, self.eps)
         return y.to(self.out_dtype)
 
 

@@ -37,9 +37,8 @@ from torch import nn
 
 from followmyhold_tpu_torch.models.vit import DINOV2_VIT_L, ViT, ViTConfig
 from followmyhold_tpu_torch.ops.image import resize_linear, resize_nearest
+from followmyhold_tpu_torch.ops.norms import group_norm_f32
 
-# Flax's GroupNorm epsilon (torch's default is 1e-5)
-_GN_EPS = 1e-6
 _IMAGE_MEAN = (0.485, 0.456, 0.406)
 _IMAGE_STD = (0.229, 0.224, 0.225)
 
@@ -101,19 +100,6 @@ def _conv1x1(in_channels: int, out_channels: int, dtype: torch.dtype, device=Non
     return nn.Conv2d(in_channels, out_channels, 1, dtype=dtype, device=device)
 
 
-def _group_norm_f32(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
-    """``norm`` in float32 with Flax's epsilon. The moments are one reduction
-    over each (image, group) flattened: ``F.group_norm`` takes one block per
-    (image, group), so the GroupNorm(1) of a 960x960x32 map ran in one block
-    (583 of a 641-ms forward on one H100, tools/profile_moge.py)."""
-    B, C = x.shape[:2]
-    grouped = x.float().reshape(B, norm.num_groups, -1)
-    var, mean = torch.var_mean(grouped, dim=-1, correction=0, keepdim=True)
-    y = ((grouped - mean) * torch.rsqrt(var + _GN_EPS)).reshape(x.shape)
-    affine = (1, C) + (1,) * (x.dim() - 2)
-    return y * norm.weight.reshape(affine) + norm.bias.reshape(affine)
-
-
 class ResidualConvBlock(nn.Module):
     """GroupNorm(1) -> relu -> conv3 -> GroupNorm(hidden / 32) -> relu ->
     conv3, plus the input; both norms in float32. (The reference's 1x1 skip
@@ -130,9 +116,9 @@ class ResidualConvBlock(nn.Module):
         self.conv2 = ReplConv3(hidden_channels, channels, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.relu(_group_norm_f32(x, self.in_norm)).to(self.dtype)
+        h = F.relu(group_norm_f32(x, self.in_norm)).to(self.dtype)
         h = self.conv1(h)
-        h = F.relu(_group_norm_f32(h, self.hidden_norm)).to(self.dtype)
+        h = F.relu(group_norm_f32(h, self.hidden_norm)).to(self.dtype)
         return self.conv2(h) + x
 
 

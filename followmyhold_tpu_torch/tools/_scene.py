@@ -181,3 +181,39 @@ def write_stage_inputs(root: str, image_id: str = "000001", size: int = 512,
         _write_hoi_crops(dirs, hoi_id, k % 2 == 1, size, moge_grid, fov_deg,
                          seed if hoi_id == image_id else seed + 1 + k)
     return dirs
+
+
+# the pieces of a small T5 Unigram vocabulary: the specials, the inpainting
+# prompt's words, single letters and punctuation
+_T5_PIECES = ([("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0), ("▁", -2.0)]
+              + [("▁" + w, -4.0 - 0.1 * k) for k, w in enumerate(
+                  ("Remove", "hands", "but", "keep", "the", "object", "water", "bottle"))]
+              + [(c, -6.0) for c in "abcdefghijklmnopqrstuvwxyz.,"])
+
+
+def write_flux_tokenizers(assets_dir: str) -> None:
+    """Vocabulary files that FLUX's tokenizers load from ``assets_dir``
+    (``FOHO_TPU_ASSETS``), so the stage runs the checkpoint's tokenizer path
+    ([1,77] CLIP ids, [1,512] T5 ids) without the checkpoint: a byte-level
+    CLIP vocabulary (every byte symbol alone and with ``</w>``, the two
+    specials) with no merges, and a small Unigram ``tokenizer.json``."""
+    import json
+    import os
+
+    from followmyhold_tpu_torch.text.tokenizers import _bytes_to_unicode
+
+    clip_dir = os.path.join(assets_dir, "tokenizers", "flux_clip")
+    t5_dir = os.path.join(assets_dir, "tokenizers", "flux_t5")
+    os.makedirs(clip_dir, exist_ok=True)
+    os.makedirs(t5_dir, exist_ok=True)
+    chars = list(_bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars + [c + "</w>" for c in chars])}
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    with open(os.path.join(clip_dir, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(clip_dir, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+    with open(os.path.join(t5_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump({"model": {"type": "Unigram", "unk_id": 2, "vocab": _T5_PIECES}}, f,
+                  ensure_ascii=False)

@@ -5,7 +5,8 @@ The port's modules keep the Flax modules' names, so the bridge is mechanical:
 
 - ``Dense`` ``kernel [in,out]`` -> ``Linear.weight [out,in]``; ``bias`` as is;
 - ``Conv`` ``kernel [kh,kw,in,out]`` (HWIO) -> ``Conv2d.weight [out,in,kh,kw]``;
-- ``LayerNorm`` / ``RMSNorm`` ``scale`` -> ``weight``; ``bias`` as is;
+- ``LayerNorm`` / ``RMSNorm`` / ``GroupNorm`` ``scale`` -> ``weight``; ``bias`` as is;
+- ``Embed`` ``embedding [num, features]`` -> ``Embedding.weight``, as is;
 - a scan-stacked block (``<name>/block/...``, or HaMeR head's
   ``<name>/layer/...``, with a leading depth axis) -> ``<name>.<i>....``, one
   module per layer.
@@ -17,11 +18,14 @@ leaf used, or the bridge raises.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 from torch import nn
+
+from followmyhold_tpu_torch.configs.paths import assets_root
 
 
 # the names the Flax modules give the body of an ``nn.scan`` over layers
@@ -66,7 +70,7 @@ def flax_to_torch(params: Mapping, module: nn.Module) -> nn.Module:
         elif leaf == "kernel":
             leaf = "weight"
             value = np.swapaxes(value, -1, -2)
-        elif leaf == "scale":
+        elif leaf in ("scale", "embedding"):
             leaf = "weight"
         if depth_at is not None:  # scan-stacked: the leading axis is the layer
             for i in range(value.shape[0]):
@@ -100,13 +104,22 @@ def init_random_(module: nn.Module, seed: int = 0) -> nn.Module:
     return module
 
 
+def params_path(name: str) -> str:
+    """Where a converted checkpoint ``name`` lives:
+    ``<assets>/params/<name>.msgpack``, as in the JAX package."""
+    return os.path.join(assets_root(), "params", f"{name}.msgpack")
+
+
+def has_params(name: str) -> bool:
+    """Whether a converted checkpoint ``name`` exists (it decides a stage's
+    backend, as in the JAX package)."""
+    return os.path.exists(params_path(name))
+
+
 def scheduler_config(name: str = "hunyuan_scheduler") -> dict:
     """The checkpoint's scheduler config (``<assets>/params/<name>.json``, e.g.
     {"shift": 1.0}), or {} without one."""
     import json
-    import os
-
-    from followmyhold_tpu_torch.configs.paths import assets_root
 
     path = os.path.join(assets_root(), "params", f"{name}.json")
     if os.path.exists(path):
