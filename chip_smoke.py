@@ -26,11 +26,12 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             each {id}_inpainted_{rid}.png checked; the final latents finite; two 2-step
             kontext_edit calls must give the same bits; one full-width transformer forward
             with K1 held against the plain attention; s per image by part (tokenizing, T5
-            and CLIP, VAE encode, the steps and the median step, VAE decode, the PNG) and
-            peak memory. The models are freed before stage 4; then one step's device-busy
-            share under torch.profiler, with K1's and the GEMM library's shares, in a child
-            process (tools/profile_inpaint.py --step-only): the profiler would slow the
-            host-bound stages after it in this one (tools/profiler_aftereffect.py).
+            and CLIP, VAE encode, the steps as one span and the median step, VAE decode,
+            the PNG; the card's parts on CUDA events, with no host synchronisation added)
+            and peak memory. The models are freed before stage 4. After the batched stage
+            (7), the last timed one, one step of a freshly built inpainter runs under
+            torch.profiler: its device-busy share, K1's and the GEMM library's shares (a
+            profiler session leaves the process's launches slower).
 5. stages   stages 4-8 on two synthetic HOI crops (write_stage_inputs' hoi_ids; a
             left and a right hand), as a user runs them, with the full-width models.
             First stage 4, geometry/moge.run on the crops without background:
@@ -997,16 +998,16 @@ def run_inpaint_stage(dev) -> dict:
     with the FLUX.1-Kontext inpainter at full width and depth (build_inpainter:
     FLUX.1-Kontext-dev, the FLUX VAE, CLIP-L and T5-XXL; bf16, seeded random
     weights, built on the card) and synthetic tokenizer vocabularies
-    (tools._scene.write_flux_tokenizers), so the prompt takes the checkpoint's
+    (tools._scene.flux_tokenizer_assets), so the prompt takes the checkpoint's
     path: [1,77] CLIP and [1,512] T5 ids, K1 at [1,24,2560,128]. The launch counts
     are set to 0 just before the run and read just after. Checks each
     {id}_inpainted_{rid}.png (512x512x3 uint8, not its input), the final latents
     finite, 57 x 28 K1 launches an image and no other kernel, two 2-step
     kontext_edit calls with the same bits, and one full-width transformer forward
     with K1 against the same forward with the plain attention. Prints s per image
-    by part, the median step and peak memory. The models are freed before the
-    stages that follow, and one step's device-busy share, with K1's and the GEMM
-    library's shares, is profiled in a child process (_profile_flux_step)."""
+    by part (the card's parts on CUDA events, no host synchronisation added
+    inside the stage), the median step and peak memory. The models are freed
+    before the stages that follow."""
     import gc
     import tempfile
 
@@ -1017,14 +1018,11 @@ def run_inpaint_stage(dev) -> dict:
     from followmyhold_tpu_torch.ops.attention import attention_plain
     from followmyhold_tpu_torch.preprocess import inpaint as stage3
     from followmyhold_tpu_torch.tools import profile_inpaint as P
-    from followmyhold_tpu_torch.tools._scene import write_flux_tokenizers, write_stage_inputs
+    from followmyhold_tpu_torch.tools._scene import flux_tokenizer_assets, write_stage_inputs
 
-    root = tempfile.mkdtemp(prefix="fmh_stage3_")
-    d = write_stage_inputs(root, image_id=IMAGE_ID, size=512, moge_grid=(8, 8), hoi_ids=HOI_IDS)
-    assets_before = os.environ.get("FOHO_TPU_ASSETS")
-    os.environ["FOHO_TPU_ASSETS"] = os.path.join(root, "assets")
-    write_flux_tokenizers(os.environ["FOHO_TPU_ASSETS"])
-    try:
+    with tempfile.TemporaryDirectory(prefix="fmh_stage3_") as root, flux_tokenizer_assets():
+        d = write_stage_inputs(root, image_id=IMAGE_ID, size=512, moge_grid=(8, 8),
+                               hoi_ids=HOI_IDS)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         inpainter = stage3.build_inpainter(seed=0, device=dev)
@@ -1063,17 +1061,16 @@ def run_inpaint_stage(dev) -> dict:
         parts = P.summarize_parts(record, n)
         rest = stage_s / n - sum(parts[p] for p in P.PARTS)
         n_blocks = F.FLUX_DEV.num_layers + F.FLUX_DEV.num_single_layers
-        n_steps = len(record["steps"]) // n
-        per_image = [sum(record["steps"][k * n_steps:(k + 1) * n_steps]) for k in range(n)]
+        n_steps = parts["n_steps"]
         say(f"inpaint: stage 3 (FLUX.1-Kontext, {n} images) {stage_s:.3f} s, "
             f"{stage_s / n:.3f} s per image: tokenizing {parts['tokenize']:.4f}, T5 and CLIP "
             f"{parts['text']:.4f}, VAE encode {parts['vae_encode']:.4f}, {n_steps} steps "
             f"{parts['steps']:.4f} (median step {parts['step_median']:.4f}), VAE decode "
             f"{parts['vae_decode']:.4f}, PNG {parts['png']:.4f}, reading, host copies and the "
             f"rest {rest:.4f} s per image (the steps of each image: "
-            f"{', '.join(f'{x:.3f}' for x in per_image)} s; VAE encodes "
-            f"{', '.join(f'{x:.4f}' for x in record['vae_encode'])} s, the first pays one-time "
-            f"set-up); peak {peak_gib:.2f} GiB; launches {launches}")
+            f"{', '.join(f'{x:.3f}' for x in parts['steps_per_image'])} s; VAE encodes "
+            f"{', '.join(f'{x:.4f}' for x in parts['calls']['vae_encode'])} s, the first pays "
+            f"one-time set-up); peak {peak_gib:.2f} GiB; launches {launches}")
 
         want = {k: 0 for k in launches}
         want["flash_attention_fwd"] = n_blocks * n_steps * n
@@ -1131,36 +1128,34 @@ def run_inpaint_stage(dev) -> dict:
         del inpainter, inputs, x_in, t5, pooled, image, edits, with_k1, plain
         gc.collect()
         torch.cuda.empty_cache()
-        prof = _profile_flux_step(os.path.join(d["cropped_hoi_dir"],
-                                               f"{IMAGE_ID}_cropped_hoi_0.png"))
-    finally:
-        if assets_before is None:
-            os.environ.pop("FOHO_TPU_ASSETS", None)
-        else:
-            os.environ["FOHO_TPU_ASSETS"] = assets_before
-        shutil.rmtree(root, ignore_errors=True)
-    return dict(launches=launches, seconds=stage_s, parts=parts, rel=rel, peak_gib=peak_gib,
-                profile=prof)
+    return dict(launches=launches, seconds=stage_s, parts=parts, rel=rel, peak_gib=peak_gib)
 
 
-def _profile_flux_step(crop_path: str) -> dict:
-    """One full-width FLUX step on ``crop_path`` under torch.profiler, in a
-    process of its own (tools/profile_inpaint.py --step-only builds its own
-    models): a process that has run the profiler launches slower afterwards
-    (tools/profiler_aftereffect.py), and the stages that follow are timed on
-    the host. -> its numbers (busy share, K1's and the GEMM library's ms)."""
-    out = subprocess.run(
-        [sys.executable, "-m", "followmyhold_tpu_torch.tools.profile_inpaint", "--step-only",
-         "--image", crop_path], capture_output=True, text=True, timeout=300,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    lines = out.stdout.strip().splitlines()
-    if out.returncode != 0 or not lines or not lines[-1].startswith('{"profile"'):
-        fail(f"the profile of one FLUX step failed (code {out.returncode}): "
-             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
-    print("\n".join(lines[:-1]), flush=True)
-    prof = json.loads(lines[-1])["profile"]
-    if not prof["k1_ms"] > 0.0:
-        fail(f"the profiled FLUX step ran no K1: {prof}")
+def profile_flux_step(dev) -> dict:
+    """One full-width FLUX.1-Kontext step under torch.profiler, on a random 512^2
+    crop with the synthetic vocabularies, in a freshly built inpainter -> its
+    numbers: the device-busy share, K1's and the GEMM library's device ms. A
+    profiler session leaves the process's launches slower (PERF.md §6, PR 10),
+    so this runs after the last timed stage."""
+    from followmyhold_tpu_torch.preprocess.inpaint import build_inpainter
+    from followmyhold_tpu_torch.tools import profile_inpaint as P
+    from followmyhold_tpu_torch.tools._scene import flux_tokenizer_assets
+
+    torch.cuda.empty_cache()
+    inpainter = build_inpainter(seed=0, device=dev)
+    crop = np.random.default_rng(0).integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    with flux_tokenizer_assets():
+        inputs = P.step_inputs(inpainter, crop, _INPAINT_PROMPT)
+    with torch.no_grad():
+        prof = P.profile_call(lambda: inpainter.transformer(*inputs))
+    say(prof.pop("table"))
+    say(f"inpaint: one step under torch.profiler: {prof['wall_ms']:.2f} ms wall, device busy "
+        f"{prof['device_ms']:.2f} ms = {prof['busy']:.1%}; K1 {prof['k1_ms']:.2f} ms "
+        f"({prof['k1_ms'] / prof['device_ms']:.1%} of device time), GEMM library "
+        f"{prof['gemm_ms']:.2f} ms ({prof['gemm_ms'] / prof['device_ms']:.1%}); "
+        f"{prof['launches']} launches; T5 states {list(inputs[1].shape)}")
+    if not prof["k1_ms"] > 0.0 or inputs[1].shape[1] != 512:
+        fail(f"the profiled FLUX step ran no K1 or not the 512 T5 tokens: {prof}")
     return prof
 
 
@@ -1982,6 +1977,7 @@ def main() -> None:
         launches_batch = ran["batched"]["launches"]
         for k, overlay in zip(kernels[-3:-1], hoi["raster_overlay"]):
             k["overlay_mesh"] = overlay
+        profile_flux_step(dev)
     for k in kernels:
         # launches: the guidance stage's run of one image; launches_stage_3, _stage_4,
         # _stages_5_8 and _batched: the runs of stage 3, of stage 4, of stages 5-8 and of

@@ -17,12 +17,12 @@ from torch import nn
 FLAX_GN_EPS = 1e-6
 
 
-def group_norm_f32(x: torch.Tensor, norm: nn.GroupNorm, eps: float = FLAX_GN_EPS) -> torch.Tensor:
-    """``norm`` of an NC... map in float32 with epsilon ``eps``; the result is
+def group_norm_f32(x: torch.Tensor, norm: nn.GroupNorm) -> torch.Tensor:
+    """``norm`` of an NC... map in float32 with Flax's epsilon; the result is
     float32, as Flax's ``GroupNorm(dtype=float32)`` returns it."""
     B, C = x.shape[:2]
     grouped = x.float().reshape(B, norm.num_groups, -1)
     var, mean = torch.var_mean(grouped, dim=-1, correction=0, keepdim=True)
-    y = ((grouped - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    y = ((grouped - mean) * torch.rsqrt(var + FLAX_GN_EPS)).reshape(x.shape)
     affine = (1, C) + (1,) * (x.dim() - 2)
     return y * norm.weight.reshape(affine) + norm.bias.reshape(affine)

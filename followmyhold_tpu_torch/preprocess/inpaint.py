@@ -23,8 +23,10 @@ Backends, as the reference chooses them:
   (``cv2``, imported there).
 
     python -m followmyhold_tpu_torch.preprocess.inpaint --save_dir <dir> \\
-        --cropped_img_dir <crops> [--mask_dir <masks>] [--gemini_responses <csv>] \\
-        [--device cuda]
+        --cropped_img_dir <crops> [--mask_dir <masks>] [--gemini_responses <csv>]
+
+The command line takes the reference's choice of backend: it has no models to
+pass.
 """
 
 from __future__ import annotations
@@ -247,10 +249,8 @@ def main() -> None:
     parser.add_argument("--cropped_img_dir", required=True)
     parser.add_argument("--gemini_responses", default=None)
     parser.add_argument("--mask_dir", default=None)
-    parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
-    run(args.save_dir, args.cropped_img_dir, args.gemini_responses, args.mask_dir,
-        device=args.device)
+    run(args.save_dir, args.cropped_img_dir, args.gemini_responses, args.mask_dir)
 
 
 if __name__ == "__main__":

@@ -3,6 +3,12 @@ third of the image wide in front of a 60-degree camera, with random targets."""
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
+import shutil
+import tempfile
+
 import numpy as np
 import torch
 
@@ -191,15 +197,30 @@ _T5_PIECES = ([("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0), ("▁", -2.0)]
               + [(c, -6.0) for c in "abcdefghijklmnopqrstuvwxyz.,"])
 
 
-def write_flux_tokenizers(assets_dir: str) -> None:
-    """Vocabulary files that FLUX's tokenizers load from ``assets_dir``
-    (``FOHO_TPU_ASSETS``), so the stage runs the checkpoint's tokenizer path
-    ([1,77] CLIP ids, [1,512] T5 ids) without the checkpoint: a byte-level
-    CLIP vocabulary (every byte symbol alone and with ``</w>``, the two
-    specials) with no merges, and a small Unigram ``tokenizer.json``."""
-    import json
-    import os
+@contextlib.contextmanager
+def flux_tokenizer_assets():
+    """For the block, ``FOHO_TPU_ASSETS`` is a temporary directory holding the
+    vocabulary files that FLUX's tokenizers load, so the stage runs the
+    checkpoint's tokenizer path ([1,77] CLIP ids, [1,512] T5 ids) without the
+    checkpoint: a byte-level CLIP vocabulary (every byte symbol alone and with
+    ``</w>``, the two specials) with no merges, and a small Unigram
+    ``tokenizer.json``. After it the variable is restored and the directory
+    removed."""
+    assets_dir = tempfile.mkdtemp(prefix="fmh_flux_assets_")
+    before = os.environ.get("FOHO_TPU_ASSETS")
+    os.environ["FOHO_TPU_ASSETS"] = assets_dir
+    try:
+        _write_flux_tokenizers(assets_dir)
+        yield assets_dir
+    finally:
+        if before is None:
+            os.environ.pop("FOHO_TPU_ASSETS", None)
+        else:
+            os.environ["FOHO_TPU_ASSETS"] = before
+        shutil.rmtree(assets_dir, ignore_errors=True)
 
+
+def _write_flux_tokenizers(assets_dir: str) -> None:
     from followmyhold_tpu_torch.text.tokenizers import _bytes_to_unicode
 
     clip_dir = os.path.join(assets_dir, "tokenizers", "flux_clip")

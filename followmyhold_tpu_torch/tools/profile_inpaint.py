@@ -1,24 +1,18 @@
 """Where the inpainting stage (stage 3) spends its time on the GPU.
 
-    python3 -m followmyhold_tpu_torch.tools.profile_inpaint [--size 512] [--image crop.png]
-        [--step-only]
+    python3 -m followmyhold_tpu_torch.tools.profile_inpaint [--image crop.png]
 
 Builds the FLUX.1-Kontext inpainter at full width and depth (FLUX.1-Kontext-dev,
 the FLUX VAE, CLIP-L and T5-XXL; bf16, seeded random weights, built on the
 card) with synthetic tokenizer vocabularies (so the prompt takes the
-checkpoint path: 77 CLIP ids, 512 T5 ids), and inpaints a random crop twice:
-the first call pays one-time set-up (cuBLAS, cuDNN), the second is timed by
-part, each part synchronised: tokenizing, the T5 and CLIP towers, the VAE
-encode, the transformer's steps (the median step), the VAE decode. Then one
-step under torch.profiler: device time over wall time (the card's busy
-share), the flash-attention kernel's and the GEMM library's shares of the
-device time, the launches, and the kernels that took the most device time;
-with ``--step-only`` only that, its numbers as the last line's JSON.
-
-A process that has run torch.profiler keeps paying for it: afterwards each
-launch costs the host more (tools/profiler_aftereffect.py), so a program that
-times host-bound work after a profile takes the profile in a process of its
-own, as chip_smoke.py does with ``--step-only``.
+checkpoint path: 77 CLIP and 512 T5 ids), and inpaints a crop (``--image``, or
+a random 512^2 one) twice: the first call pays one-time set-up (cuBLAS,
+cuDNN), the second is timed by part (``timed_parts``): tokenizing, the T5 and
+CLIP towers, the VAE encode, the transformer's steps (their span and the
+median step), the VAE decode, the PNG. Then one step under torch.profiler:
+device time over wall time (the card's busy share), the flash-attention
+kernel's and the GEMM library's shares of the device time, the launches, and
+the kernels that took the most device time.
 """
 
 from __future__ import annotations
@@ -27,7 +21,6 @@ import argparse
 import contextlib
 import statistics
 import subprocess
-import tempfile
 import time
 
 import numpy as np
@@ -39,6 +32,10 @@ from followmyhold_tpu_torch.models.flux import FluxTransformer, FluxVae
 from followmyhold_tpu_torch.models.t5 import T5Encoder
 
 PARTS = ("tokenize", "text", "vae_encode", "steps", "vae_decode", "png")
+# the parts that run on the card, timed with CUDA events (no host
+# synchronisation, so the host runs ahead as it does in a user's run); the
+# others are host work, timed on the host's clock
+DEVICE_PARTS = ("text", "vae_encode", "steps", "vae_decode")
 # substrings of the device kernels' names: the port's flash-attention forward
 # (K1), and the GEMM library's kernels behind nn.Linear
 K1_NAME = "flash_fwd_kernel"
@@ -47,11 +44,16 @@ GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma")
 
 def _timed(fn, record: dict, key: str):
     def wrapped(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        record.setdefault(key, []).append(time.perf_counter() - t0)
+        if key in DEVICE_PARTS:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            record.setdefault(key, []).append((start, end))
+        else:
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            record.setdefault(key, []).append(time.perf_counter() - t0)
         return out
     return wrapped
 
@@ -59,9 +61,10 @@ def _timed(fn, record: dict, key: str):
 @contextlib.contextmanager
 def timed_parts(record: dict):
     """Within the block, the stage's parts are wrapped (the functions, not
-    changed): each call synchronised, its seconds appended to
-    ``record[part]`` for the parts of PARTS ("text": T5 and CLIP; "steps":
-    each transformer call; "png": every PIL save)."""
+    changed), each call's timing appended to ``record[part]`` for the parts of
+    PARTS ("text": T5 and CLIP; "steps": each transformer call; "png": every
+    PIL save): a pair of CUDA events for DEVICE_PARTS, seconds for the
+    others. ``summarize_parts`` reads them."""
     from PIL import Image
 
     from followmyhold_tpu_torch.preprocess import inpaint
@@ -81,9 +84,25 @@ def timed_parts(record: dict):
 
 
 def summarize_parts(record: dict, n_images: int) -> dict:
-    """Seconds per image of each part, and the median step."""
-    out = {part: sum(record.get(part, [])) / n_images for part in PARTS}
-    out["step_median"] = statistics.median(record["steps"]) if record.get("steps") else 0.0
+    """``timed_parts``' record of ``n_images`` images (synchronises the card
+    first) -> seconds per image of each part ("steps": each image's steps as
+    one span, from its first step's start to its last step's end), the median
+    step, each image's steps, the steps an image, and each call's seconds."""
+    torch.cuda.synchronize()
+
+    def seconds(t):
+        return t[0].elapsed_time(t[1]) / 1e3 if isinstance(t, tuple) else t
+
+    calls = {part: [seconds(t) for t in record.get(part, [])] for part in PARTS}
+    out = {part: sum(calls[part]) / n_images for part in PARTS}
+    steps = record.get("steps", [])
+    n_steps = len(steps) // n_images
+    out["steps_per_image"] = [steps[k * n_steps][0].elapsed_time(steps[(k + 1) * n_steps - 1][1])
+                              / 1e3 for k in range(n_images)] if n_steps else []
+    out["steps"] = sum(out["steps_per_image"]) / n_images
+    out["step_median"] = statistics.median(calls["steps"]) if steps else 0.0
+    out["n_steps"] = n_steps
+    out["calls"] = calls
     return out
 
 
@@ -137,27 +156,19 @@ def step_inputs(inpainter, image: np.ndarray, prompt: str, seed: int = 0) -> tup
 
 
 def main() -> None:
-    import json
-    import os
-
     from PIL import Image
 
     from followmyhold_tpu_torch.preprocess.inpaint import build_inpainter
-    from followmyhold_tpu_torch.tools._scene import write_flux_tokenizers
+    from followmyhold_tpu_torch.tools._scene import flux_tokenizer_assets
 
-    parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--size", type=int, default=512, help="the random crop's size")
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--image", default=None, help="a crop to use instead of a random one")
-    parser.add_argument("--step-only", action="store_true",
-                        help="profile one step only, and print its numbers as a JSON line")
     args = parser.parse_args()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    assets = tempfile.mkdtemp(prefix="fmh_flux_assets_")
-    write_flux_tokenizers(assets)
-    os.environ["FOHO_TPU_ASSETS"] = assets
     dev = torch.device("cuda:0")
     t0 = time.perf_counter()
     inpainter = build_inpainter(seed=0, device=dev)
@@ -170,23 +181,22 @@ def main() -> None:
     if args.image is not None:
         image = np.asarray(Image.open(args.image).convert("RGB"))
     else:
-        image = np.random.default_rng(0).integers(0, 256, (args.size, args.size, 3),
-                                                  dtype=np.uint8)
+        image = np.random.default_rng(0).integers(0, 256, (512, 512, 3), dtype=np.uint8)
     prompt = "Remove hands but keep the object."
-    for k in range(0 if args.step_only else 2):
-        record = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with timed_parts(record):
-            out = inpainter(image, prompt)
-        wall = time.perf_counter() - t0
-        parts = summarize_parts(record, 1)
-        print(f"image {k}: {wall:.3f} s: " + ", ".join(f"{p} {parts[p]:.4f}" for p in PARTS)
-              + f"; step median {parts['step_median']:.4f} s over {len(record['steps'])} steps; "
-              f"output mean {out.mean():.1f}")
-        print(f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
-    inputs = step_inputs(inpainter, image, prompt)
+    with flux_tokenizer_assets():
+        for k in range(2):
+            record = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with timed_parts(record):
+                out = inpainter(image, prompt)
+            wall = time.perf_counter() - t0
+            parts = summarize_parts(record, 1)
+            print(f"image {k}: {wall:.3f} s: " + ", ".join(f"{p} {parts[p]:.4f}" for p in PARTS)
+                  + f"; step median {parts['step_median']:.4f} s over {parts['n_steps']} steps; "
+                  f"output mean {out.mean():.1f}")
+            print(f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        inputs = step_inputs(inpainter, image, prompt)
     with torch.no_grad():
         prof = profile_call(lambda: inpainter.transformer(*inputs))
     print(prof.pop("table"))
@@ -195,8 +205,6 @@ def main() -> None:
           f"({prof['k1_ms'] / prof['device_ms']:.1%} of device time), GEMM library "
           f"{prof['gemm_ms']:.2f} ms ({prof['gemm_ms'] / prof['device_ms']:.1%}); "
           f"{prof['launches']} launches")
-    if args.step_only:
-        print(json.dumps({"profile": prof}))
 
 
 if __name__ == "__main__":

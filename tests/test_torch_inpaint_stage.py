@@ -18,7 +18,9 @@ Tolerances (measured on the CPU): the same files; each PNG within 1 of the
 JAX one in every channel (float32 on both sides, then the reference's
 truncation to uint8, where an output within rounding of an integer step may
 land on either side; measured: 1, on one of the two images' 6,144 values). The
-Telea backend (``cv2``) gives the same bytes in both packages.
+Telea backend (``cv2``) gives the same bytes in both packages. The GPU tools'
+temporary vocabularies (``tools/_scene.flux_tokenizer_assets``) give the
+checkpoint path's shapes and leave ``FOHO_TPU_ASSETS`` as they found it.
 """
 
 import dataclasses
@@ -44,6 +46,7 @@ from followmyhold_tpu_torch.models import clip_text as TC
 from followmyhold_tpu_torch.models import flux as TF
 from followmyhold_tpu_torch.models import t5 as TT5
 from followmyhold_tpu_torch.preprocess import inpaint as TI
+from followmyhold_tpu_torch.tools._scene import flux_tokenizer_assets
 from followmyhold_tpu_torch.utils.params import flax_to_torch
 
 IDS = ("000031", "000032")
@@ -200,3 +203,17 @@ def test_run_defaults_to_the_card(tmp_path):
     crops, csv_path = _write_inputs(str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TI.run(str(tmp_path / "out"), crops, csv_path)
+
+
+def test_flux_tokenizer_assets_are_temporary(tmp_path, monkeypatch):
+    before = str(tmp_path / "before")
+    monkeypatch.setenv("FOHO_TPU_ASSETS", before)
+    monkeypatch.delenv("FOHO_ALLOW_HASH_TOKENIZER", raising=False)
+    with flux_tokenizer_assets() as assets_dir:
+        assert os.environ["FOHO_TPU_ASSETS"] == assets_dir
+        clip_ids, t5_ids = TI.tokenize_flux_prompt("Remove hands but keep the object.",
+                                                   TC.CLIP_L, TT5.T5_XXL)
+    # the checkpoint path pads T5 to 512 ids; the hashed fallback gives ~10
+    assert clip_ids.shape == (1, 77) and t5_ids.shape == (1, 512)
+    assert os.environ["FOHO_TPU_ASSETS"] == before
+    assert not os.path.exists(assets_dir)
