@@ -28,8 +28,8 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             with K1 held against the plain attention; s per image by part (tokenizing, T5
             and CLIP, VAE encode, the steps as one span and the median step, VAE decode,
             the PNG; the card's parts on CUDA events, with no host synchronisation added)
-            and peak memory. The models are freed before stage 4. After the batched stage
-            (7), the last timed one, one step of a freshly built inpainter runs under
+            and peak memory. The models are freed before stage 4. After the pipeline
+            (8), the last timed phase, one step of a freshly built inpainter runs under
             torch.profiler: its device-busy share, K1's and the GEMM library's shares (a
             profiler session leaves the process's launches slower).
 5. stages   stages 4-8 on two synthetic HOI crops (write_stage_inputs' hoi_ids; a
@@ -72,10 +72,21 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             phases image by image; the exports two at once), with its own launch
             counts; checks all four PLYs, that the two poses differ, and each
             image's batched DiT prediction against its batch-2 one.
-8. result   a `kernels` JSON line (`launches`: the guidance stage's run of one
-            image; `launches_stage_3`, `launches_stage_4`, `launches_stages_5_8`,
-            `launches_batched`: the runs of stage 3, of stage 4, of stages 5-8 and of the
-            batched stage), the nvidia-smi line, and the `ok` JSON line.
+8. pipeline the whole pipeline from one photo, as a user runs it: main.run_pipeline
+            on tools._scene.hoi_photo (1280x960, a hand holding a striped box) from an
+            env file in a temporary directory, stages 1-9 in this process at full width
+            (see run_pipeline_phase: each stage's build function hands over the models built
+            here or by the earlier phases; FLUX.1-Kontext is built for stage 3 and freed
+            after it; the field's level is set for stages 5 and 9 as in phases 5 and 6),
+            with its own launch counts. Checks every artifact, the masks, both PLYs, all
+            four kernels launched, no stage reporting an error, and that a second
+            run_pipeline skips every stage; prints s per image by stage (1-2, 3, 4, 5, 6,
+            7-8, 9) and of the whole, and the peak memory.
+9. result   the whole script's seconds, a `kernels` JSON line (`launches`: the
+            guidance stage's run of one image; `launches_stage_3`, `launches_stage_4`,
+            `launches_stages_5_8`, `launches_batched`, `launches_pipeline`: the runs of
+            stage 3, of stage 4, of stages 5-8, of the batched stage and of the
+            pipeline), the nvidia-smi line, and the `ok` JSON line.
 
 Tolerances, and why:
 - flash attention O (bf16): 1e-2 * max|ref| + 1e-3. The kernel rounds the
@@ -880,27 +891,34 @@ def _shape_field(dev, dit, vae, cond_main, uncond_main) -> dict:
     _INSIDE_SHARE of a 33^3 grid over the box is inside at the latents of an
     unguided 20-step run from the stage's own initial noise and condition.
     All of it is seeded, so every run of the script gets the same weights."""
-    from followmyhold_tpu_torch.diffusion.pipeline import denoise_latents
-    from followmyhold_tpu_torch.utils.prng import SEED_GUIDANCE, stage_generator
-
     c = vae.cfg
     per = 2 * c.fourier_freqs + 1
     keep = torch.zeros(3 * per, dtype=torch.bool, device=dev)
     keep[[a * per + j for a in range(3) for j in (0, 1, 1 + c.fourier_freqs)]] = True
-    shape = (1, c.num_latents, c.embed_dim)
-    noise = torch.randn(shape, generator=stage_generator(SEED_GUIDANCE, "guidance", IMAGE_ID, dev),
-                        device=dev)
-    lat = denoise_latents(dit, cond_main, uncond_main, shape[1:], num_inference_steps=20,
-                          guidance_scale=5.0, initial_noise=noise, device=dev)
     with torch.no_grad():
         vae.geo.query_in.weight[:, ~keep] = 0.0
         vae.geo.proj.weight.mul_(_ATTENTION_SCALE)
         vae.geo.proj.bias.mul_(_ATTENTION_SCALE)
-    g = _box_logits(dev, vae, lat)
-    level = torch.quantile(g, 1.0 - _INSIDE_SHARE).item()
+    level, spread = _guidance_level(dev, dit, vae, cond_main, uncond_main, IMAGE_ID)
     with torch.no_grad():
         vae.geo.logit.bias -= level
-    return dict(logit_shift=-level, spread=(g.max() - g.min()).item())
+    return dict(logit_shift=-level, spread=spread)
+
+
+def _guidance_level(dev, dit, vae, cond_main, uncond_main, image_id: str) -> tuple:
+    """The logit level that puts _INSIDE_SHARE of the box inside at the
+    latents of an unguided 20-step run at 5.0 from the guidance stage's noise
+    for image_id and the given condition. -> (level, the logits' spread)."""
+    from followmyhold_tpu_torch.diffusion.pipeline import denoise_latents
+    from followmyhold_tpu_torch.utils.prng import SEED_GUIDANCE, stage_generator
+
+    shape = (1, vae.cfg.num_latents, vae.cfg.embed_dim)
+    noise = torch.randn(shape, generator=stage_generator(SEED_GUIDANCE, "guidance", image_id, dev),
+                        device=dev)
+    lat = denoise_latents(dit, cond_main, uncond_main, shape[1:], num_inference_steps=20,
+                          guidance_scale=5.0, initial_noise=noise, device=dev)
+    g = _box_logits(dev, vae, lat)
+    return torch.quantile(g, 1.0 - _INSIDE_SHARE).item(), (g.max() - g.min()).item()
 
 
 def _box_logits(dev, vae, lat) -> torch.Tensor:
@@ -946,9 +964,10 @@ def _count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message).lower() for w in caught)
 
 
-def _stage5_level(dev, models, image_dir: str) -> dict:
+def _stage5_level(dev, models, crops, tag: str = "hoi") -> dict:
     """The logit level that puts _INSIDE_SHARE of the box inside at the
-    latents stage 5 reaches for HOI_IDS (30 CFG steps at 7.5 from the stage's
+    latents stage 5 reaches for crops, (image id, crop without background)
+    pairs (30 CFG steps at 7.5 from the stage's
     own noise and conditions: another field level than the guidance stage's
     20 steps at 5.0, which _shape_field calibrates, and the export of the
     guidance-shaped field held no surface there). The stage runs with the
@@ -962,9 +981,8 @@ def _stage5_level(dev, models, image_dir: str) -> dict:
     dit, vae, cond = models
     shape = (1, vae.cfg.num_latents, vae.cfg.embed_dim)
     conds, unconds, noise = [], [], []
-    for k, image_id in enumerate(HOI_IDS):
-        rgb = np.asarray(Image.open(os.path.join(image_dir, f"{image_id}_cropped_hoi_{k % 2}.png"))
-                         .convert("RGB"))
+    for image_id, path in crops:
+        rgb = np.asarray(Image.open(path).convert("RGB"))
         c, u = encode_condition(cond, white_to_alpha(rgb), device=dev)
         conds.append(c[0])
         unconds.append(u[0])
@@ -976,11 +994,12 @@ def _stage5_level(dev, models, image_dir: str) -> dict:
     g = _box_logits(dev, vae, lat)
     level = torch.quantile(g.flatten(), 1.0 - _INSIDE_SHARE).item()
     shares = (g > level).float().mean(dim=1).tolist()
-    say(f"hoi: stage 5's field level {level:.4f} (the guidance-shaped field's logits over the "
+    say(f"{tag}: stage 5's field level {level:.4f} (the guidance-shaped field's logits over the "
         f"box span {g.min().item():.4f} to {g.max().item():.4f}); inside shares then "
         f"{[round(x, 4) for x in shares]}")
     if min(shares) <= 0.0:
-        fail(f"stage 5's field has no surface for one of {HOI_IDS}: inside shares {shares}")
+        fail(f"stage 5's field has no surface for one of {[c[0] for c in crops]}: inside "
+             f"shares {shares}")
     return dict(level=level, inside_shares=shares)
 
 
@@ -1336,7 +1355,10 @@ def run_hoi_stages(dev, models, d: dict, root: str) -> dict:
     say(f"hoi: built HaMeR at full width (ViT-H + head, {n_hamer:.3f} billion parameters, "
         f"bf16) in {time.perf_counter() - t0:.1f} s")
 
-    level5 = _stage5_level(dev, models, d["cropped_hoi_wo_bckg_dir"])
+    level5 = _stage5_level(dev, models, [
+        (image_id, os.path.join(d["cropped_hoi_wo_bckg_dir"],
+                                f"{image_id}_cropped_hoi_{k % 2}.png"))
+        for k, image_id in enumerate(HOI_IDS)])
     vae = models[1]
     bias = vae.geo.logit.bias.detach().clone()
 
@@ -1802,7 +1824,7 @@ def run_stage(dev) -> dict:
              f"least {2 * (want_raster - 1)}")
     shutil.rmtree(root, ignore_errors=True)
     batched = run_batched_stage(dev, (dit, vae, cond))
-    return dict(launches=launches, hoi=hoi, batched=batched)
+    return dict(launches=launches, hoi=hoi, batched=batched, models=(dit, vae, cond))
 
 
 # the batched run's two images: the main path's image (its crop, its noise stream) and
@@ -1932,6 +1954,282 @@ def run_batched_stage(dev, models) -> dict:
     return dict(launches=launches, seconds=stage_s, sampler_seconds=sec, calls=calls,
                 dit_rel=rel)
 
+# the photo of the pipeline phase (tools._scene.hoi_photo) and its stage groups, in
+# run_pipeline's order: each group's stage modules, whose run() is timed
+PIPELINE_ID = "000003"
+PIPELINE_STAGES = (
+    ("1-2", ("followmyhold_tpu_torch.preprocess.gemini_objname",
+             "followmyhold_tpu_torch.preprocess.get_hunyuan_input")),
+    ("3", ("followmyhold_tpu_torch.preprocess.inpaint",)),
+    ("4", ("followmyhold_tpu_torch.geometry.moge",)),
+    ("5", ("followmyhold_tpu_torch.geometry.hunyuan",)),
+    ("6", ("followmyhold_tpu_torch.hand.hamer",)),
+    ("7-8", ("followmyhold_tpu_torch.alignment.h2m", "followmyhold_tpu_torch.alignment.mano")),
+    ("9", ("followmyhold_tpu_torch.guidance.run",)),
+)
+
+
+class _Tee:
+    """A text stream that writes to stdout and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def __getattr__(self, name):     # isatty, encoding, fileno: the stream's
+        return getattr(self.stream, name)
+
+
+def run_pipeline_phase(dev, models) -> dict:
+    """The whole pipeline from one photo, as a user runs it:
+    followmyhold_tpu_torch.main.run_pipeline on tools._scene.hoi_photo (1280x960)
+    from an env file in a temporary directory, stages 1-9 in this process at full
+    width. Each stage's build function hands over models built here or by the earlier
+    phases (seeded random weights): stage 3 FLUX.1-Kontext at full width with the
+    synthetic vocabularies (built here, freed after stage 3), stage 4 MoGe shaped
+    by _shape_moge, stage 6 HaMeR ViT-H, and stages 5 and 9 the main path's
+    Hunyuan models, whose field's logit level each build function sets for its own stage
+    on the crop stage 2 wrote (stage 5 by _stage5_level's rule on the crop without
+    background, stage 9 by _shape_field's on stage 3's output); the level's
+    calibration is timed apart. The launch counts are set to 0 just before the run
+    and read just after. Checks every artifact of the contract, the masks
+    non-empty, a finite object PLY and a hand PLY of 778 vertices, every kernel of
+    the path launched, and no stage reporting an error; a second run_pipeline on
+    the same directories must skip every stage and rewrite no artifact. Prints s
+    per image by stage and of the whole, and the peak memory."""
+    import contextlib
+    import gc
+    import importlib
+    import tempfile
+    import warnings
+
+    from PIL import Image
+
+    from followmyhold_tpu_torch import main as orchestrator
+    from followmyhold_tpu_torch.configs import load_config
+    from followmyhold_tpu_torch.configs.profiles import (
+        crop_size,
+        moge_config,
+        optimization_config,
+    )
+    from followmyhold_tpu_torch.diffusion.guidance import GuidedSampler
+    from followmyhold_tpu_torch.geometry import hunyuan as hoi
+    from followmyhold_tpu_torch.geometry import moge as stage4
+    from followmyhold_tpu_torch.geometry.hunyuan import encode_condition
+    from followmyhold_tpu_torch.guidance import run as stage9
+    from followmyhold_tpu_torch.hand import hamer as hand
+    from followmyhold_tpu_torch.models.hunyuan import COND_FULL, DIT_FULL, VAE_FULL
+    from followmyhold_tpu_torch.ops import _kernels
+    from followmyhold_tpu_torch.preprocess import inpaint as stage3
+    from followmyhold_tpu_torch.tools._scene import flux_tokenizer_assets, hoi_photo
+    from followmyhold_tpu_torch.utils.artifacts import artifacts_for
+    from followmyhold_tpu_torch.utils.mesh_io import load_mesh
+
+    dit, vae, cond = models
+    bias = vae.geo.logit.bias.detach().clone()
+    root = tempfile.mkdtemp(prefix="fmh_pipeline_")
+    photo = os.path.join(root, f"{PIPELINE_ID}.png")
+    Image.fromarray(hoi_photo()).save(photo)
+    env = os.path.join(root, "pipeline.env")
+    with open(env, "w", encoding="utf-8") as f:
+        f.write(f"# the pipeline phase of chip_smoke.py\nPROJECT_ROOT={root}\n"
+                f"BASE_DIR={root}/out\nIMAGE_PATH={photo}\nRUN_INPAINT=1\n")
+    cfg = load_config(env)
+
+    t0 = time.perf_counter()
+    inpainter = {"models": stage3.build_inpainter(seed=0, device=dev)}
+    moge_model = stage4._build_model(moge_config(), seed=0, device=dev)
+    hamer_model = hand._build_model(hand._default_config(), device=dev)
+    torch.cuda.synchronize()
+    say(f"pipeline: built FLUX.1-Kontext + its towers, MoGe and HaMeR at full width in "
+        f"{time.perf_counter() - t0:.1f} s")
+    handle = _shape_moge(moge_model, dev)
+    levels, calibration = {}, {}
+    calib_launches = {k: 0 for k in _kernels.launch_counts()}
+
+    @contextlib.contextmanager
+    def calibrating(group: str):
+        """Time a level calibration and keep its launches apart."""
+        before = _kernels.launch_counts()
+        t = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        calibration[group] = time.perf_counter() - t
+        for k, v in _kernels.launch_counts().items():
+            calib_launches[k] += v - before[k]
+
+    def learned_inpainter(*a, **k):
+        if inpainter["models"] is None:
+            fail("stage 3 asked for its models after it had run")
+        return inpainter["models"]
+
+    def stage5_models(*a, **k):
+        if "5" not in levels:
+            crop = os.path.join(cfg.cropped_hoi_wo_bckg_path, os.listdir(
+                cfg.cropped_hoi_wo_bckg_path)[0])
+            with calibrating("5"), torch.no_grad():
+                vae.geo.logit.bias.copy_(bias)
+                levels["5"] = _stage5_level(dev, models, [(PIPELINE_ID, crop)],
+                                            tag="pipeline")["level"]
+        with torch.no_grad():
+            vae.geo.logit.bias.copy_(bias - levels["5"])
+        return models
+
+    def stage9_models(*a, **k):
+        if "9" not in levels:
+            crop = os.path.join(cfg.cropped_inpainted_obj, os.listdir(
+                cfg.cropped_inpainted_obj)[0])
+            with calibrating("9"), torch.no_grad():
+                vae.geo.logit.bias.copy_(bias)
+                tokens, uncond = encode_condition(
+                    cond, np.asarray(Image.open(crop).convert("RGBA")), device=dev)
+                levels["9"] = _guidance_level(dev, dit, vae, tokens, uncond, PIPELINE_ID)[0]
+            say(f"pipeline: stage 9's field level {levels['9']:.4f} on {os.path.basename(crop)}")
+        with torch.no_grad():
+            vae.geo.logit.bias.copy_(bias - levels["9"])
+        return models
+
+    stage_s, sampler_s = {}, {}
+    sampler_run = GuidedSampler.run
+
+    def timed_sampler(self, *a, **k):       # stage 9's sampler and its phases
+        t = time.perf_counter()
+        result = sampler_run(self, *a, **k)
+        torch.cuda.synchronize()
+        sampler_s.update(result.seconds, sampler=time.perf_counter() - t)
+        return result
+
+    swaps = [(stage3, "_learned_inpainter", learned_inpainter),
+             (GuidedSampler, "run", timed_sampler),
+             (stage4, "_build_model", lambda *a, **k: moge_model),
+             (hoi, "build_models", stage5_models),
+             (hand, "_build_model", lambda *a, **k: hamer_model),
+             (stage9, "build_models", stage9_models)]
+    for group, names in PIPELINE_STAGES:
+        for name in names:
+            module = importlib.import_module(name)
+            timed = _timed(module.run, stage_s, group)
+            if module is stage3:
+                def timed(*a, _run=timed, **k):      # stage 3's models freed after it
+                    _run(*a, **k)
+                    inpainter["models"] = None
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            swaps.append((module, "run", timed))
+    originals = [(owner, name, getattr(owner, name)) for owner, name, _ in swaps]
+    tee = _Tee(sys.stdout)
+    try:
+        for owner, name, fn in swaps:
+            setattr(owner, name, fn)
+        # run_pipeline's warning filters (FOHO_SUPPRESS_WARNINGS) end with the phase
+        with flux_tokenizer_assets(), contextlib.redirect_stdout(tee), \
+                warnings.catch_warnings():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            orchestrator.run_pipeline(cfg, device=dev)
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+            launches = {k: v - calib_launches[k] for k, v in _kernels.launch_counts().items()}
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            said = "".join(tee.parts)
+
+            # ---- checks -------------------------------------------------- #
+            art = artifacts_for(cfg, PIPELINE_ID, is_right=True)
+            needed = (art.original_img, art.masked_obj_img, art.cropped_hoi,
+                      art.cropped_hoi_wo_bckg, art.cropped_obj_mask, art.cropped_hand_mask,
+                      art.inpainted_obj, art.moge_fov, art.moge_mesh, art.hunyuan_hoi_mesh,
+                      art.hamer_npy, art.hamer_kps, art.hamer_mesh, art.h2m_transform,
+                      art.aligned_mano_mesh, art.guidance_obj, art.guidance_hand,
+                      os.path.join(cfg.base_dir, "gemini_responses.csv"))
+            missing = [os.path.relpath(p, root) for p in needed if not os.path.exists(p)]
+            if missing:
+                fail(f"the pipeline wrote no {missing}")
+            if "Error" in said:
+                fail("a stage of the pipeline reported an error: "
+                     + " | ".join(line for line in said.splitlines() if "Error" in line))
+            shares = {}
+            for mask in (art.cropped_obj_mask, art.cropped_hand_mask):
+                m = np.asarray(Image.open(mask)) > 0
+                shares[os.path.basename(mask)] = round(float(m.mean()), 4)
+                if m.shape != (crop_size(),) * 2 or not m.any():
+                    fail(f"the pipeline's {os.path.basename(mask)} is {m.shape} or empty")
+            obj, hand_ply = load_mesh(art.guidance_obj), load_mesh(art.guidance_hand)
+            if not (obj.num_faces > 0 and np.isfinite(obj.vertices).all()
+                    and hand_ply.num_vertices == 778 and np.isfinite(hand_ply.vertices).all()):
+                fail(f"the pipeline's PLYs: object {obj.num_vertices} verts {obj.num_faces} "
+                     f"faces, hand {hand_ply.num_vertices} verts, or not finite")
+            t_h2m = np.load(art.h2m_transform)
+            if not (t_h2m.shape == (4, 4) and np.isfinite(t_h2m).all()):
+                fail(f"the pipeline's {os.path.basename(art.h2m_transform)} is {t_h2m}")
+
+            # a second run on the same directories skips every stage
+            files = sorted(os.path.join(d, f) for d, _, fs in os.walk(cfg.base_dir) for f in fs)
+            stamps = {f: os.path.getmtime(f) for f in files if "J_regressor" not in f}
+            first_s = dict(stage_s)
+            stage_s.clear()
+            tee.parts.clear()
+            t0 = time.perf_counter()
+            orchestrator.run_pipeline(cfg, device=dev)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            said_again = "".join(tee.parts)
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+        handle.remove()
+        with torch.no_grad():
+            vae.geo.logit.bias.copy_(bias)
+    if {f: os.path.getmtime(f) for f in stamps} != stamps or "Error" in said_again:
+        fail("the second run_pipeline rewrote an artifact or reported an error")
+    if said_again.count("skipping") < 8:
+        fail(f"the second run_pipeline did not skip every stage: {said_again!r}")
+
+    config = optimization_config()
+    n_hand, n_obj = config.optimization_steps_hand, config.optimization_steps_scale
+    n_joint = config.optimization_steps_joint * (config.num_inference_steps
+                                                 - config.handopt_start_step - 2)
+    # the stages' own seconds: stages 5 and 9 without this script's calibration
+    per_stage = {group: sum(first_s.get(group, [0.0])) - calibration.get(group, 0.0)
+                 for group, _ in PIPELINE_STAGES}
+    calib_s = sum(calibration.values())
+    say(f"pipeline: stages 1-9 on one photo {whole_s - calib_s:.2f} s; s per image by stage: "
+        + ", ".join(f"{group} {t:.3f}" for group, t in per_stage.items())
+        + f" (this script's field-level calibration inside stages 5 and 9, "
+        f"{ {g: round(t, 3) for g, t in calibration.items()} } s, is left out); stage 9's "
+        f"sampler {sampler_s['sampler']:.2f} s (DiT step median "
+        f"{float(np.median(sampler_s['dit_steps'])):.4f} s; hand "
+        f"{sampler_s['hand'] / n_hand * 1e3:.2f}, object {sampler_s['obj'] / n_obj * 1e3:.2f}, "
+        f"joint {sampler_s['joint'] / n_joint * 1e3:.2f} ms per iteration); peak "
+        f"{peak_gib:.2f} GiB; mask shares {shares}; object {obj.num_faces} faces; launches "
+        f"{launches}")
+    say(f"pipeline: a second run_pipeline on the same directories skipped every stage in "
+        f"{resume_s:.3f} s ({ {g: round(sum(t), 3) for g, t in stage_s.items()} })")
+
+    n_blocks = DIT_FULL.depth_double + DIT_FULL.depth_single
+    want = {"flash_attention_fwd": 57 * 28 + 24 + n_blocks * (30 + config.num_inference_steps)
+            + 2 * COND_FULL.depth,
+            "flash_attention_bwd": VAE_FULL.depth * (n_obj + n_joint),
+            "raster_fwd": n_hand + n_obj + 2 * n_joint + 1,
+            "raster_bwd": n_hand + n_obj + 2 * n_joint,
+            "raster_chunk_plan": n_hand + n_obj + 2 * n_joint + 1,
+            "scatter_rows_add": 2 * (n_hand + n_obj + 2 * n_joint)}
+    short = {k: (launches[k], v) for k, v in want.items() if launches[k] < v}
+    if short:
+        fail(f"the pipeline launched kernels fewer times than its stages run them "
+             f"(launched, expected at least): {short}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches, seconds=whole_s - calib_s, per_stage=per_stage,
+                calibration=calibration, sampler=sampler_s,
+                resume_seconds=resume_s, peak_gib=peak_gib, levels=levels)
+
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__,
@@ -1940,6 +2238,7 @@ def main() -> None:
                         help="build and check the kernels, skip the models")
     args = parser.parse_args()
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU and has no CPU mode")
     dev = torch.device("cuda:0")
@@ -1967,8 +2266,9 @@ def main() -> None:
 
     kernels = [check_flash_attention(dev), check_flash_attention_backward(dev),
                *check_rasterizer(dev)]
-    launches = launches_inpaint = launches_hoi = launches_moge = launches_batch = {
-        k["name"]: 0 for k in kernels}
+    launches = launches_inpaint = launches_hoi = launches_moge = launches_batch = \
+        launches_pipeline = {k["name"]: 0 for k in kernels}
+    t_models = time.perf_counter()
     if not args.kernels_only:
         launches_inpaint = run_inpaint_stage(dev)["launches"]
         ran = run_stage(dev)
@@ -1977,17 +2277,22 @@ def main() -> None:
         launches_batch = ran["batched"]["launches"]
         for k, overlay in zip(kernels[-3:-1], hoi["raster_overlay"]):
             k["overlay_mesh"] = overlay
+        launches_pipeline = run_pipeline_phase(dev, ran.pop("models"))["launches"]
         profile_flux_step(dev)
     for k in kernels:
         # launches: the guidance stage's run of one image; launches_stage_3, _stage_4,
-        # _stages_5_8 and _batched: the runs of stage 3, of stage 4, of stages 5-8 and of
-        # the batched guidance
+        # _stages_5_8, _batched and _pipeline: the runs of stage 3, of stage 4, of stages
+        # 5-8, of the batched guidance and of run_pipeline's stages 1-9
         k["launches"] = launches[k["name"]]
         k["launches_stage_3"] = launches_inpaint[k["name"]]
         k["launches_stage_4"] = launches_moge[k["name"]]
         k["launches_stages_5_8"] = launches_hoi[k["name"]]
         k["launches_batched"] = launches_batch[k["name"]]
+        k["launches_pipeline"] = launches_pipeline[k["name"]]
 
+    now = time.perf_counter()
+    say(f"script: {now - t_start:.1f} s in all, {now - t_models:.1f} s of it after the kernel "
+        f"checks")
     say(json.dumps({"kernels": kernels}))
     say(smi)
     if args.kernels_only:

@@ -5,10 +5,11 @@ Counterpart of followmyhold_tpu/geometry/hunyuan.py. ``run`` takes every HOI
 crop ({id}_cropped_hoi_*.png, pure white as transparent) through the plain
 flow-matching pipeline (30 CFG steps) in batches of up to 5 images, each with
 its own noise stream, then each image through the 384^3 export, floater and
-degenerate-face removal and face reduction, to {id}_hoi_mesh.ply. No
-checkpoint exists offline, so the models carry seeded random weights, as the
-reference's do without a checkpoint. ``FOHO_TPU_PROFILE=tiny`` picks the
-reference's tiny configurations where no configuration is given.
+degenerate-face removal and face reduction, to {id}_hoi_mesh.ply. The models
+load their converted checkpoints where the files exist and carry seeded
+random weights where they do not, as the reference's do
+(``build_models``). ``FOHO_TPU_PROFILE=tiny`` picks the reference's tiny
+configurations where no configuration is given.
 
     python -m followmyhold_tpu_torch.geometry.hunyuan --image_dir ... --save_dir ... \
         [--device cuda]
@@ -47,7 +48,11 @@ from followmyhold_tpu_torch.models.hunyuan import (
 )
 from followmyhold_tpu_torch.utils.device import DeviceLike, resolve_device
 from followmyhold_tpu_torch.utils.mesh_io import write_ply
-from followmyhold_tpu_torch.utils.params import init_random_, scheduler_shift as _ckpt_shift
+from followmyhold_tpu_torch.utils.params import (
+    init_random_,
+    load_or_init,
+    scheduler_shift as _ckpt_shift,
+)
 from followmyhold_tpu_torch.utils.prng import SEED_HUNYUAN, stage_generator
 
 # images per batch of the denoising loop, as the reference batches them
@@ -65,20 +70,31 @@ def build_models(dit_cfg: Optional[DiTConfig] = None,
                  cond_cfg: Optional[ConditionerConfig] = None,
                  seed: int = 0,
                  device: DeviceLike = "cuda") -> Tuple[HunyuanDiT, ShapeVAE, Conditioner]:
-    """(dit, vae, conditioner) on ``device`` with seeded random weights, in
-    eval mode and with gradients to the weights off (the sampler optimizes
-    poses and noise, never weights). A configuration not given is the
-    full-size one, or the tiny one under ``FOHO_TPU_PROFILE=tiny``."""
+    """(dit, vae, conditioner) on ``device``, in eval mode and with gradients
+    to the weights off (the sampler optimizes poses and noise, never
+    weights). Each model loads its converted checkpoint (``hunyuan_dit``,
+    ``hunyuan_vae``, ``hunyuan_cond`` under ``<assets>/params/``) where the
+    file exists, as the reference does, and carries seeded random weights
+    where it does not (the conditioner's unconditional embedding then zeros,
+    as in the original model). A configuration not given is the full-size
+    one, or the tiny one under ``FOHO_TPU_PROFILE=tiny``."""
     dev = resolve_device(device)
     tiny = is_tiny()
-    dit = HunyuanDiT(dit_cfg or (DIT_PROFILE_TINY if tiny else DIT_FULL), device=dev)
-    vae = ShapeVAE(vae_cfg or (VAE_TINY if tiny else VAE_FULL), device=dev)
-    cond = Conditioner(cond_cfg or (COND_TINY if tiny else COND_FULL), device=dev)
-    init_random_(dit, seed)
-    init_random_(vae, seed + 1)
-    init_random_(cond, seed + 2)
-    with torch.no_grad():
-        cond.uncond_embedding.zero_()   # zeros, as in the original model
+
+    def init_cond(cond: Conditioner) -> None:
+        init_random_(cond, seed + 2)
+        with torch.no_grad():
+            cond.uncond_embedding.zero_()
+
+    dit = load_or_init("hunyuan_dit",
+                       HunyuanDiT(dit_cfg or (DIT_PROFILE_TINY if tiny else DIT_FULL), device=dev),
+                       lambda m: init_random_(m, seed))
+    vae = load_or_init("hunyuan_vae",
+                       ShapeVAE(vae_cfg or (VAE_TINY if tiny else VAE_FULL), device=dev),
+                       lambda m: init_random_(m, seed + 1))
+    cond = load_or_init("hunyuan_cond",
+                        Conditioner(cond_cfg or (COND_TINY if tiny else COND_FULL), device=dev),
+                        init_cond)
     for model in (dit, vae, cond):
         model.eval().requires_grad_(False)
     return dit, vae, cond

@@ -8,8 +8,9 @@ points.npy, mask.png, normal.png, fov.json (fov_x and fov_y in degrees,
 rounded to 0.01), depth.exr where cv2 writes EXR, and mesh.ply and
 pointcloud.ply in GL convention (vertices * [1, -1, -1]) from the valid
 pixels off the depth edges. An image whose fov.json and mesh.ply exist is
-skipped. No checkpoint exists offline, so the model carries seeded random
-weights (``_build_model``); ``FOHO_TPU_PROFILE=tiny`` picks the reference's
+skipped. The model loads the converted checkpoint where its file exists and
+carries seeded random weights where it does not (``_build_model``);
+``FOHO_TPU_PROFILE=tiny`` picks the reference's
 tiny configuration (``configs.profiles.moge_config``).
 
     python -m followmyhold_tpu_torch.geometry.moge --input <crops> --output <dir> \\
@@ -33,16 +34,21 @@ from followmyhold_tpu_torch.models.moge import MoGe, MoGeConfig, moge_infer
 from followmyhold_tpu_torch.ops.image_mesh import depth_edge, image_mesh
 from followmyhold_tpu_torch.utils.device import DeviceLike, resolve_device
 from followmyhold_tpu_torch.utils.mesh_io import write_ply
-from followmyhold_tpu_torch.utils.params import init_random_
+from followmyhold_tpu_torch.utils.params import init_random_, load_or_init
 
 
 def _build_model(cfg: MoGeConfig, seed: int = 0, device: DeviceLike = "cuda") -> MoGe:
-    """MoGe with seeded random weights, the metric-scale readout at zero as
-    the reference initialises it (a random one would put exp of a random
-    number on every depth); in eval mode, without gradients to the weights."""
-    model = init_random_(MoGe(cfg, device=resolve_device(device)), seed)
-    with torch.no_grad():
-        model.scale_out.weight.zero_()
+    """MoGe on ``device`` in eval mode, without gradients to the weights:
+    the converted checkpoint ``moge`` where its file exists, else seeded
+    random weights with the metric-scale readout at zero as the reference
+    initialises it (a random one would put exp of a random number on every
+    depth)."""
+    def init(model: MoGe) -> None:
+        init_random_(model, seed)
+        with torch.no_grad():
+            model.scale_out.weight.zero_()
+
+    model = load_or_init("moge", MoGe(cfg, device=resolve_device(device)), init)
     return model.eval().requires_grad_(False)
 
 

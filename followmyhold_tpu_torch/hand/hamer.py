@@ -49,7 +49,7 @@ from followmyhold_tpu_torch.ops.surface import PaddedMesh, vertex_normals
 from followmyhold_tpu_torch.utils.artifacts import parse_cropped_hoi_name, should_skip
 from followmyhold_tpu_torch.utils.device import DeviceLike, resolve_device
 from followmyhold_tpu_torch.utils.mesh_io import write_obj
-from followmyhold_tpu_torch.utils.params import init_random_
+from followmyhold_tpu_torch.utils.params import init_random_, load_or_init
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -111,15 +111,19 @@ def _default_config() -> HamerConfig:
 
 
 def _build_model(cfg: HamerConfig, seed: int = 0, device: DeviceLike = "cuda") -> Hamer:
-    """HaMeR with seeded random weights (no checkpoint exists offline), the
-    mean-pose and mean-camera inits, and the readout scaled down by
-    ``_READOUT_GAIN``; in eval mode, without gradients to the weights."""
-    model = init_random_(Hamer(cfg, device=resolve_device(device)), seed)
-    head = model.mano_head
-    head.reset_mean_params_()
-    with torch.no_grad():
-        for layer in (head.decpose, head.decshape, head.deccam):
-            layer.weight.mul_(_READOUT_GAIN)
+    """HaMeR on ``device`` in eval mode, without gradients to the weights:
+    the converted checkpoint ``hamer`` where its file exists, else seeded
+    random weights with the mean-pose and mean-camera inits and the readout
+    scaled down by ``_READOUT_GAIN``."""
+    def init(model: Hamer) -> None:
+        init_random_(model, seed)
+        head = model.mano_head
+        head.reset_mean_params_()
+        with torch.no_grad():
+            for layer in (head.decpose, head.decshape, head.deccam):
+                layer.weight.mul_(_READOUT_GAIN)
+
+    model = load_or_init("hamer", Hamer(cfg, device=resolve_device(device)), init)
     return model.eval().requires_grad_(False)
 
 

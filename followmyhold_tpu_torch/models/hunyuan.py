@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -904,13 +906,30 @@ def compose_hierarchical_grid(g_c, refine_vals, resolution: int, coarse_factor: 
     return dense
 
 
+# set once FOHO_EXPORT_F16 has been reported in this process
+_EXPORT_F16_WARNED = False
+
+
+def _warn_export_f16() -> None:
+    """Warn once that ``FOHO_EXPORT_F16=1`` is ignored. The reference then
+    ships the export's values as float16, to halve a device-to-host copy over
+    a remote-TPU link; the port keeps them in exact float32."""
+    global _EXPORT_F16_WARNED
+    if os.environ.get("FOHO_EXPORT_F16", "0") == "1" and not _EXPORT_F16_WARNED:
+        _EXPORT_F16_WARNED = True
+        warnings.warn("FOHO_EXPORT_F16=1 is ignored: the port keeps the export's values in "
+                      "exact float32", stacklevel=3)
+
+
 def hierarchical_export_logits(vae: ShapeVAE, latents: torch.Tensor, box_v: float,
                                resolution: int, chunk: int = 8192,
                                cell_cap: int = EXPORT_CELL_CAP,
                                coarse_factor: int = 4) -> np.ndarray:
     """Device two-level decode, copy to the host, host compose, with the
     reference's capacity warning: the dense [(res+1)^3] float32 logits grid
-    (callers negate it for the SDF)."""
+    (callers negate it for the SDF). ``FOHO_EXPORT_F16=1`` is ignored, with
+    one warning."""
+    _warn_export_f16()
     g_c, pt_ids, fine, n_sel, n_pts = vae_query_logits_hierarchical(
         vae, latents, [-box_v] * 3, [box_v] * 3, resolution, chunk=chunk,
         coarse_factor=coarse_factor, cell_cap=cell_cap)

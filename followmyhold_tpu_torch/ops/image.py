@@ -1,5 +1,6 @@
-"""Image resampling: the affine patch crop, and resizes with the semantics
-of ``jax.image.resize`` (cubic, linear, nearest).
+"""Image resampling and box helpers: the affine patch crop, resizes with the
+semantics of ``jax.image.resize`` (cubic, linear, nearest), the ImageNet
+normalisation, box IoU and the square box of the HOI crop.
 
 Counterpart of followmyhold_tpu/ops/image.py. The patch crop (HaMeR's
 ViTDetDataset crop) maps a source box onto the output patch by the similarity
@@ -89,6 +90,47 @@ def resize_linear(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """[B, H, W, C] floating -> [B, height, width, C] in its dtype, as
     ``jax.image.resize(image, (B, height, width, C), "linear")`` (antialiased)."""
     return _resize_hw(image, height, width, _triangle)
+
+
+def resize_bilinear(image: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """[H,W,C] or [H,W] -> float32 [*out_hw(, C)], as ``jax.image.resize(image,
+    shape, "bilinear")`` (the linear resize above: "bilinear" is its name for
+    "linear")."""
+    x = image.float()
+    flat = x[None] if x.dim() == 3 else x[None, ..., None]
+    out = resize_linear(flat, out_hw[0], out_hw[1])[0]
+    return out if x.dim() == 3 else out[..., 0]
+
+
+def normalize_imagenet(image01: torch.Tensor) -> torch.Tensor:
+    """[..., 3] in [0, 1] -> ImageNet-normalised, in the image's dtype."""
+    mean = torch.tensor([0.485, 0.456, 0.406], dtype=image01.dtype, device=image01.device)
+    std = torch.tensor([0.229, 0.224, 0.225], dtype=image01.dtype, device=image01.device)
+    return (image01 - mean) / std
+
+
+def box_iou(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
+    """IoU of xyxy boxes, broadcasting [..., 4] x [..., 4]; 0 where the union
+    is empty."""
+    x1 = torch.maximum(box1[..., 0], box2[..., 0])
+    y1 = torch.maximum(box1[..., 1], box2[..., 1])
+    x2 = torch.minimum(box1[..., 2], box2[..., 2])
+    y2 = torch.minimum(box1[..., 3], box2[..., 3])
+    inter = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+    a1 = (box1[..., 2] - box1[..., 0]) * (box1[..., 3] - box1[..., 1])
+    a2 = (box2[..., 2] - box2[..., 0]) * (box2[..., 3] - box2[..., 1])
+    union = a1 + a2 - inter
+    return torch.where(union > 0, inter / torch.where(union > 0, union, torch.ones_like(union)),
+                       torch.zeros_like(union))
+
+
+def process_bbox(bbox_xywh: Sequence[float], factor: float = 1.25) -> list:
+    """The square box of side max(w, h) * ``factor`` about the box's centre,
+    as [x, y, w, h] floats."""
+    x, y, w, h = (float(v) for v in bbox_xywh)
+    c_x, c_y = x + w / 2.0, y + h / 2.0
+    w = h = max(w, h) * factor
+    return [c_x - w / 2.0, c_y - h / 2.0, w, h]
 
 
 def nearest_indices(in_size: int, out_size: int) -> np.ndarray:

@@ -13,14 +13,13 @@ Backends, as the reference chooses them:
   CLIP-L and T5-XXL; prompt "Remove hands but keep the {object}.", 28 steps,
   guidance 2.5, the same noise for every image). ``run(models=...)`` and
   ``inpaint_hand(models=...)`` take a built inpainter on the card; with one,
-  the FLUX path runs or raises. No checkpoint exists offline, so
-  ``build_inpainter`` makes one with seeded random weights at the published
-  widths and depths, built on the device in bf16.
+  the FLUX path runs or raises. ``build_inpainter`` makes one with seeded
+  random weights at the published widths and depths, built on the device in
+  bf16.
 - Without ``models``, the reference's choice: where the four converted
-  parameter files exist (``utils.params.has_params``) the reference loads
-  them, and the port raises (loading them waits for the converters); where
-  they are absent, the classical Telea fill over the dilated hand mask
-  (``cv2``, imported there).
+  parameter files exist (``utils.params.has_params``) they are loaded
+  (``_learned_inpainter``); where any is absent, the classical Telea fill
+  over the dilated hand mask (``cv2``, imported there).
 
     python -m followmyhold_tpu_torch.preprocess.inpaint --save_dir <dir> \\
         --cropped_img_dir <crops> [--mask_dir <masks>] [--gemini_responses <csv>]
@@ -32,10 +31,9 @@ pass.
 from __future__ import annotations
 
 import argparse
-import csv
 import glob
 import os
-from typing import Dict, Mapping, Optional
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -52,20 +50,11 @@ from followmyhold_tpu_torch.models.flux import (
     kontext_edit,
 )
 from followmyhold_tpu_torch.models.t5 import T5_XXL, T5Config, T5Encoder
+from followmyhold_tpu_torch.preprocess.gemini_objname import read_names
 from followmyhold_tpu_torch.utils.artifacts import parse_cropped_hoi_name
 from followmyhold_tpu_torch.utils.device import DeviceLike, resolve_device
-from followmyhold_tpu_torch.utils.params import has_params, init_random_
+from followmyhold_tpu_torch.utils.params import has_params, init_random_, load_params
 from followmyhold_tpu_torch.utils.prng import SEED_INPAINT, stage_generator
-
-
-def _read_gemini_names(path: Optional[str]) -> Dict[str, str]:
-    names: Dict[str, str] = {}
-    if path and os.path.exists(path):
-        with open(path, "r", encoding="utf-8") as f:
-            for row in csv.reader(f):
-                if len(row) >= 3:
-                    names[row[0]] = row[2]
-    return names
 
 
 def tokenize_flux_prompt(prompt: str, clip_cfg: ClipTextConfig, t5_cfg: T5Config,
@@ -144,6 +133,12 @@ class FluxKontextInpainter:
         return (out[0].cpu().numpy() * 255).astype(np.uint8)
 
 
+def _models(cfgs) -> tuple:
+    """(class, configuration, parameter file name) of each of the four models."""
+    return tuple(zip((FluxTransformer, FluxVae, ClipTextModel, T5Encoder), cfgs,
+                     FluxKontextInpainter.REQUIRED))
+
+
 def build_inpainter(seed: int = 0, device: DeviceLike = "cuda",
                     transformer_cfg: FluxConfig = FLUX_DEV, vae_cfg: FluxVaeConfig = FLUX_VAE,
                     clip_cfg: ClipTextConfig = CLIP_L,
@@ -153,32 +148,36 @@ def build_inpainter(seed: int = 0, device: DeviceLike = "cuda",
     for the four), in eval mode, without gradients to the weights."""
     dev = resolve_device(device)
     models = [init_random_(cls(cfg, device=dev), seed * 4 + k).eval().requires_grad_(False)
-              for k, (cls, cfg) in enumerate(((FluxTransformer, transformer_cfg),
-                                              (FluxVae, vae_cfg), (ClipTextModel, clip_cfg),
-                                              (T5Encoder, t5_cfg)))]
+              for k, (cls, cfg, _) in enumerate(_models((transformer_cfg, vae_cfg, clip_cfg,
+                                                         t5_cfg)))]
     return FluxKontextInpainter(*models)
 
 
-def _learned_inpainter() -> None:
-    """None where the converted FLUX weights are absent (the Telea fill runs);
-    where all four exist the reference loads them, and the port raises."""
+def _learned_inpainter(device: DeviceLike = "cuda", transformer_cfg: FluxConfig = FLUX_DEV,
+                       vae_cfg: FluxVaeConfig = FLUX_VAE, clip_cfg: ClipTextConfig = CLIP_L,
+                       t5_cfg: T5Config = T5_XXL) -> Optional[FluxKontextInpainter]:
+    """The inpainter with the four converted checkpoints
+    (``FluxKontextInpainter.REQUIRED``) loaded on ``device``, in eval mode;
+    None where any of the files is absent (the Telea fill runs), as in the
+    reference."""
     if not all(has_params(n) for n in FluxKontextInpainter.REQUIRED):
         return None
-    raise NotImplementedError(
-        f"converted FLUX parameters {FluxKontextInpainter.REQUIRED} exist, but loading them "
-        "into the port waits for its converters; pass models=build_inpainter(...) to run "
-        "FLUX.1-Kontext on seeded random weights")
+    dev = resolve_device(device)
+    return FluxKontextInpainter(*[
+        load_params(name, cls(cfg, device=dev)).eval().requires_grad_(False)
+        for cls, cfg, name in _models((transformer_cfg, vae_cfg, clip_cfg, t5_cfg))])
 
 
 def inpaint_hand(image_rgb: np.ndarray, hand_mask: np.ndarray, radius: int = 7,
                  object_name: str = "object",
                  models: Optional[FluxKontextInpainter] = None,
-                 initial_noise=None) -> np.ndarray:
+                 initial_noise=None, device: DeviceLike = "cuda") -> np.ndarray:
     """Remove the hand region: FLUX.1-Kontext with ``models`` (prompt "Remove
     hands but keep the {object}."); without, the reference's choice (see the
-    module's docstring): dilate the mask by 9x9 and fill it with Telea."""
+    module's docstring): the converted checkpoints loaded on ``device``, or,
+    without them, the 9x9-dilated mask filled with Telea."""
     if models is None:
-        models = _learned_inpainter()
+        models = _learned_inpainter(device)
     if models is not None:
         return models(image_rgb, f"Remove hands but keep the {object_name}.",
                       initial_noise=initial_noise)
@@ -200,23 +199,21 @@ def run(
     device: DeviceLike = "cuda",
 ) -> None:
     """Every crop of ``cropped_img_dir`` through ``inpaint_hand``. ``models``
-    is a built inpainter on ``device``; ``initial_noise`` maps an image id to
-    its packed noise (for tests; the stage's own noise otherwise)."""
+    is a built inpainter on ``device``; without it the backend is chosen (and
+    converted weights loaded) at the first crop whose output is missing, as
+    the reference loads them. ``initial_noise`` maps an image id to its
+    packed noise (for tests; the stage's own noise otherwise)."""
     dev = resolve_device(device)
     if models is not None and models.device != torch.empty(0, device=dev).device:
         raise ValueError(f"the inpainter lies on {models.device}, not on {dev}")
     os.makedirs(save_dir, exist_ok=True)
-    names = _read_gemini_names(gemini_responses)
+    names = read_names(gemini_responses)
 
     images = sorted(glob.glob(os.path.join(cropped_img_dir, "*.png")))
     if not images:
         print(f"No images found in {cropped_img_dir}")
         return
-    if models is None:
-        models = _learned_inpainter()
-    print("inpaint: " + (f"FLUX.1-Kontext on {dev}" if models is not None
-                         else "the Telea fill (no converted FLUX weights)"))
-
+    chosen = False
     if mask_dir is None:
         mask_dir = os.path.join(os.path.dirname(cropped_img_dir.rstrip("/")),
                                 "cropped_hand_masks")
@@ -229,6 +226,12 @@ def run(
             print(f"{image_id} exists, skipping")
             continue
 
+        if not chosen:
+            if models is None:
+                models = _learned_inpainter(dev)
+            chosen = True
+            print("inpaint: " + (f"FLUX.1-Kontext on {dev}" if models is not None
+                                 else "the Telea fill (no converted FLUX weights)"))
         img = np.asarray(Image.open(img_path).convert("RGB"))
         mask_path = os.path.join(mask_dir, f"{image_id}_cropped_hand_mask.png")
         if os.path.exists(mask_path):
@@ -238,7 +241,7 @@ def run(
 
         result = inpaint_hand(img, hand_mask, object_name=names.get(image_id, "object"),
                               models=models,
-                              initial_noise=(initial_noise or {}).get(image_id))
+                              initial_noise=(initial_noise or {}).get(image_id), device=dev)
         Image.fromarray(result).save(out_path)
         print(f"Inpainted {image_id}")
 

@@ -1,5 +1,7 @@
-"""The synthetic hand scene the GPU tools share: the synthetic MANO mesh a
-third of the image wide in front of a 60-degree camera, with random targets."""
+"""The synthetic scenes the GPU tools and tests share: the synthetic MANO
+mesh a third of the image wide in front of a 60-degree camera with random
+targets, the stages' synthetic input files, a photo of a hand holding an
+object, and temporary tokenizer vocabularies."""
 
 from __future__ import annotations
 
@@ -187,6 +189,42 @@ def write_stage_inputs(root: str, image_id: str = "000001", size: int = 512,
         _write_hoi_crops(dirs, hoi_id, k % 2 == 1, size, moge_grid, fov_deg,
                          seed if hoi_id == image_id else seed + 1 + k)
     return dirs
+
+
+def hoi_photo(height: int = 960, width: int = 1280, seed: int = 0) -> np.ndarray:
+    """A photo of a hand holding an object, [height, width, 3] uint8: a
+    skin-coloured hand (an ellipse of a palm and four fingers, lightly
+    shaded) over a striped blue and cyan box, on a smooth grey background
+    with a faint texture. ``preprocess.detectors.HeuristicBundle`` finds a
+    hand box (the skin colour) and an object box (the stripes' edges) in
+    it, and the crop's object and hand masks are both non-empty."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    s = min(height, width) / 960.0
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    # the background: a gentle ramp and noise blurred to a faint texture
+    texture = cv2.GaussianBlur(rng.normal(0.0, 6.0, (height, width)).astype(np.float32),
+                               (0, 0), 4.0)
+    base = 95.0 + 25.0 * xx / width + 15.0 * yy / height + texture
+    img = np.repeat(base[..., None], 3, axis=2)
+    # the object: a box of vertical stripes, a little right of the centre
+    cx, cy = 0.55 * width, 0.5 * height
+    half_w, half_h = 170 * s, 230 * s
+    box = (np.abs(xx - cx) < half_w) & (np.abs(yy - cy) < half_h)
+    stripe = (((xx - cx + half_w) // (28 * s)) % 2).astype(bool)
+    img[box & stripe] = (40, 60, 200)
+    img[box & ~stripe] = (60, 200, 220)
+    # the hand: a palm over the box's left edge and four fingers across its front
+    px, py = cx - half_w - 20 * s, cy + 40 * s
+    hand = ((xx - px) / (120 * s)) ** 2 + ((yy - py) / (150 * s)) ** 2 < 1.0
+    for k in range(4):
+        fy = py - 105 * s + 62 * k * s
+        hand |= ((xx > px) & (xx < px + 260 * s - 25 * abs(k - 1.5) * s)
+                 & (np.abs(yy - fy) < 24 * s))
+    shade = 1.0 + 0.04 * np.sin(xx / (40 * s)) * np.cos(yy / (55 * s))
+    img[hand] = np.array([210.0, 140.0, 110.0]) * shade[hand][:, None]
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 # the pieces of a small T5 Unigram vocabulary: the specials, the inpainting

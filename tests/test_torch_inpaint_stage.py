@@ -193,7 +193,9 @@ def test_converted_weights_without_a_loader_raise(tmp_path, monkeypatch):
     for name in TI.FluxKontextInpainter.REQUIRED:
         (tmp_path / "params" / f"{name}.msgpack").write_bytes(b"x")
     crops, csv_path = _write_inputs(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="converters"):
+    # the four files are loaded now (tests/test_torch_params_files.py); these
+    # hold no parameter tree, and the load raises, naming the file
+    with pytest.raises(ValueError, match="flux_transformer.msgpack holds no parameter tree"):
         TI.run(str(tmp_path / "out"), crops, csv_path, device="cpu")
 
 
