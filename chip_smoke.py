@@ -17,7 +17,23 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             Also the deterministic scatter-add behind every gather's gradient
             (ops/indexing.scatter_rows_add): no host sync, same bits in two
             calls, timed beside the atomic index_add_ it replaced.
-4. inpaint  stage 3 first, as the pipeline runs it: preprocess/inpaint.run on the two
+4. detect   stage 2 on its learned path, as a user runs it where the four converted
+            detector files exist: preprocess/get_hunyuan_input.run on tools._scene.hoi_photo
+            (1280x960) with preprocess.detectors.LearnedBundle at full width and depth
+            (YOLOv8-n; the Faster R-CNN, ResNet-101 with a bf16 trunk; GroundingDINO with
+            Swin-B and BERT-base; SAM2 Hiera-L; seeded random weights, ~0.5 B parameters)
+            and a synthetic WordPiece vocabulary: YOLO at 640^2, the Faster R-CNN at
+            800x600 (22,800 anchors, 6,000 to NMS, at most 300 rois), GroundingDINO at
+            800^2 and SAM2 at 1024^2 on the crop, for the object and for "only hand". No
+            kernel of this repo runs there (the JAX package's detectors reach no
+            pallas_call). Checks the stage's files, every output finite, the crop's union
+            box inside the photo, the masks' shape and two calls of each bundle function
+            giving the same bits; prints s per image by part, NMS candidate counts, host
+            syncs per call and peak memory (see run_detect_phase). The models are freed
+            before stage 3. The pipeline phase (9) keeps the heuristic bundle: that is what
+            default_bundle picks without converted files, and detectors on random weights
+            would feed the later stages arbitrary crops.
+5. inpaint  stage 3 first, as the pipeline runs it: preprocess/inpaint.run on the two
             synthetic HOI crops and hand masks that stages 4-8 use, with FLUX.1-Kontext-dev,
             the FLUX VAE, CLIP-L and T5-XXL at full width and depth (bf16, seeded random
             weights built on the card, ~31.5 GiB) and synthetic tokenizer vocabularies, so
@@ -29,10 +45,10 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             and CLIP, VAE encode, the steps as one span and the median step, VAE decode,
             the PNG; the card's parts on CUDA events, with no host synchronisation added)
             and peak memory. The models are freed before stage 4. After the pipeline
-            (8), the last timed phase, one step of a freshly built inpainter runs under
+            (9), the last timed phase, one step of a freshly built inpainter runs under
             torch.profiler: its device-busy share, K1's and the GEMM library's shares (a
             profiler session leaves the process's launches slower).
-5. stages   stages 4-8 on two synthetic HOI crops (write_stage_inputs' hoi_ids; a
+6. stages   stages 4-8 on two synthetic HOI crops (write_stage_inputs' hoi_ids; a
             left and a right hand), as a user runs them, with the full-width models.
             First stage 4, geometry/moge.run on the crops without background:
             MoGe with DINOv2-L (24 x 1024, bf16) and the published neck and heads at
@@ -50,7 +66,7 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             render, and feeds image 0's files, stage 4's mesh and field of view
             among them, to guidance/run.build_targets (its time and transient
             memory).
-6. main     the guidance stage on one image, as a user runs it: guidance/run.py's
+7. main     the guidance stage on one image, as a user runs it: guidance/run.py's
             run_hunyuan_w_guid on synthetic artifacts (a 512^2 crop, masks, a 384x512
             MoGe grid mesh, the synthetic hand, keypoints), with the full-width
             Hunyuan3D-2 DiT, ShapeVAE and DINOv2-G conditioner on seeded random
@@ -66,13 +82,13 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             tets on the host), floaters, degenerate faces, face reduction, and the
             two PLYs. The kernels' launch counts are set to 0 just before the stage
             and read just after; it prints s per image split by part.
-7. batch    the guidance stage on two images in one batch: guidance/run.run with
+8. batch    the guidance stage on two images in one batch: guidance/run.run with
             batch_size=2 over two scenes at 50 and 70 degrees, with the same models
             and the default config (GuidedSampler.run_batch: the DiT at batch 4, the
             phases image by image; the exports two at once), with its own launch
             counts; checks all four PLYs, that the two poses differ, and each
             image's batched DiT prediction against its batch-2 one.
-8. pipeline the whole pipeline from one photo, as a user runs it: main.run_pipeline
+9. pipeline the whole pipeline from one photo, as a user runs it: main.run_pipeline
             on tools._scene.hoi_photo (1280x960, a hand holding a striped box) from an
             env file in a temporary directory, stages 1-9 in this process at full width
             (see run_pipeline_phase: each stage's build function hands over the models built
@@ -82,7 +98,7 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             four kernels launched, no stage reporting an error, and that a second
             run_pipeline skips every stage; prints s per image by stage (1-2, 3, 4, 5, 6,
             7-8, 9) and of the whole, and the peak memory.
-9. result   the whole script's seconds, a `kernels` JSON line (`launches`: the
+10. result  the whole script's seconds, a `kernels` JSON line (`launches`: the
             guidance stage's run of one image; `launches_stage_3`, `launches_stage_4`,
             `launches_stages_5_8`, `launches_batched`, `launches_pipeline`: the runs of
             stage 3, of stage 4, of stages 5-8, of the batched stage and of the
@@ -151,6 +167,7 @@ Tolerances, and why:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -1009,6 +1026,319 @@ def _stage5_level(dev, models, crops, tag: str = "hoi") -> dict:
 # limit is twice that
 _FLUX_REL_LIMIT = 2.5e-2
 _INPAINT_PROMPT = "Remove hands but keep the object."
+
+
+# stage 2's photos on the learned path: the first pays the models' first calls
+DETECT_IDS = ("000004", "000005")
+
+
+def _event_spans(record: dict, key: str, fn):
+    """fn, with a pair of CUDA events recorded around each call into record[key]
+    (read after the run, so no host synchronisation is added)."""
+    def wrapped(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        record.setdefault(key, []).append((start, end))
+        return out
+    return wrapped
+
+
+def _read_outputs(key: str, out) -> dict:
+    """A learned model's outputs (a tensor, tuple or dict) that the detect phase
+    reads, by name, each with whether it may hold -inf. GroundingDINO's logits
+    may be -inf (the text's padding) and its encoder's coordinate logits +inf
+    (the proposals it rules out), by design, so its boxes, logits and encoder
+    features are read."""
+    if key == "gdino":
+        return {n: (out[n], n == "logits")
+                for n in ("logits", "pred_boxes", "encoder_text", "encoder_vision")}
+    tensors = {"": out} if isinstance(out, torch.Tensor) else (
+        out if isinstance(out, dict) else dict(enumerate(out)))
+    return {n: (t, False) for n, t in tensors.items()}
+
+
+def _outputs_finite(key: str, out) -> bool:
+    """A learned model's outputs finite (-inf where _read_outputs allows it)."""
+    return all(bool((torch.isfinite(t) | (neg_inf & (t == -float("inf")))).all())
+               for t, neg_inf in _read_outputs(key, out).values())
+
+
+def _largest_output(key: str, out) -> float:
+    """The largest |entry| of the finite entries of a learned model's outputs."""
+    return max((float(t[torch.isfinite(t)].abs().max().float())
+                for t, _ in _read_outputs(key, out).values() if torch.isfinite(t).any()),
+               default=0.0)
+
+
+def _bits(value) -> list:
+    """The bytes of a bundle function's result (arrays, numbers, detections,
+    None), for a same-bits comparison."""
+    if value is None:
+        return [b"None"]
+    if isinstance(value, (list, tuple)):
+        return [b for v in value for b in _bits(v)]
+    if hasattr(value, "box_xyxy"):
+        return _bits((value.box_xyxy, value.score, value.is_right))
+    a = np.asarray(value)
+    return [str(a.dtype).encode(), str(a.shape).encode(), a.tobytes()]
+
+
+# the logit GroundingDINO's best query is lifted to on random weights: sigmoid(2) = 0.88
+_GDINO_BEST_LOGIT = 2.0
+
+
+def _shape_gdino(out: dict, raw_best: list) -> dict:
+    """GroundingDINO's outputs with its logits shifted so that the best query's
+    is _GDINO_BEST_LOGIT (the -inf of the text's padding stays): on random
+    weights every query scores under detect_text_prompt's 0.3 (the raw best is
+    appended to raw_best), no box would reach SAM2, and stage 2 would not run
+    its segmenter. The shift keeps the queries' order; nothing else changes."""
+    logits = out["logits"]
+    best = torch.where(torch.isfinite(logits), logits, -float("inf")).amax()
+    raw_best.append(best)
+    out["logits"] = logits - best + _GDINO_BEST_LOGIT
+    return out
+
+
+def run_detect_phase(dev) -> dict:
+    """Stage 2 on its learned path, as a user runs it where the four converted
+    detector files exist: preprocess/get_hunyuan_input.run on a split of two photos
+    (tools._scene.hoi_photo, 1280x960, seeds 0 and 1; the first pays the models'
+    first calls) with preprocess.detectors.LearnedBundle built here at the published
+    widths and full depth (YOLOv8-n, the ResNet-101 Faster R-CNN, GroundingDINO with
+    Swin-B and BERT-base, SAM2 Hiera-L; seeded random weights) and handed over as the
+    pipeline phase hands over its models, with a synthetic WordPiece vocabulary so the
+    prompts take the checkpoint's tokenizer path; GroundingDINO's logits are lifted so
+    that its best query passes the threshold (_shape_gdino: on random weights none does,
+    and SAM2 would not run). A photo: YOLO at 640^2 (8,400 anchors), the Faster R-CNN at
+    800x600 (a 50x38 map, 22,800 anchors, 6,000 to NMS, at most 300 rois), then, on the
+    crop, GroundingDINO at 800^2 and SAM2 at 1024^2 for the object and for "only hand".
+    Checks the five directories' files, every model output finite (GroundingDINO's
+    logits may be -inf at the text's padding), each crop's union box inside its photo,
+    both masks of the crop's shape, each model run as often as the stage runs it, and
+    two calls of each bundle function giving the same bits (boxes, scores, masks).
+    Prints the build time and parameter count of each model, s per image and by part
+    for each photo (the card's parts on CUDA events, no host synchronisation added; the
+    host's PIL resizes on its clock), the candidates before and after each NMS, the
+    host synchronisations of each bundle call, the largest finite |output| of each model
+    (the seeded init's scale at full depth) and the peak memory. The models are freed
+    before stage 3."""
+    import gc
+    import tempfile
+
+    import PIL.Image
+    from PIL import Image
+
+    from followmyhold_tpu_torch.configs.profiles import crop_size
+    from followmyhold_tpu_torch.models import hand_object_detector as hod
+    from followmyhold_tpu_torch.ops import nms as nms_ops
+    from followmyhold_tpu_torch.preprocess import detectors
+    from followmyhold_tpu_torch.preprocess import get_hunyuan_input as stage2
+    from followmyhold_tpu_torch.preprocess import segment_hoi
+    from followmyhold_tpu_torch.tools._scene import hoi_photo, write_gdino_vocab
+
+    root = tempfile.mkdtemp(prefix="fmh_detect_")
+    before_assets = os.environ.get("FOHO_TPU_ASSETS")
+    os.environ["FOHO_TPU_ASSETS"] = os.path.join(root, "assets")
+    write_gdino_vocab(os.path.join(root, "assets"))
+    photos = [hoi_photo(seed=k) for k in range(len(DETECT_IDS))]
+    H, W = photos[0].shape[:2]
+    split = os.path.join(root, "split.csv")
+    with open(split, "w", encoding="utf-8") as f:
+        f.write("img_id,img_path\n")
+        for image_id, photo in zip(DETECT_IDS, photos):
+            Image.fromarray(photo).save(os.path.join(root, f"{image_id}.png"))
+            f.write(f"{image_id},{os.path.join(root, image_id)}.png\n")
+
+    built = {}
+    load_or_init = detectors.load_or_init
+
+    def timed_build(name, module, init):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = load_or_init(name, module, init)
+        torch.cuda.synchronize()
+        built[name] = (time.perf_counter() - t,
+                       sum(p.numel() for p in module.parameters()) / 1e6)
+        return out
+
+    detectors.load_or_init = timed_build
+    try:
+        t0 = time.perf_counter()
+        bundle = detectors.LearnedBundle(device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        detectors.load_or_init = load_or_init
+    say(f"detect: built the learned bundle at full width in {build_s:.2f} s ("
+        + ", ".join(f"{n} {t:.2f} s, {m:.2f} M parameters" for n, (t, m) in built.items())
+        + f"; {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card)")
+
+    spans, nms_calls, outputs, unions, raw_best = {}, [], {}, [], []
+    image_s, pil_s = [], [0.0]
+    resize, process_bbox, hoi_detector = (PIL.Image.Image.resize, segment_hoi.process_bbox,
+                                          stage2.hoi_detector)
+
+    def counted_nms(key, fn):
+        def wrapped(boxes, scores, *a, **k):
+            keep = fn(boxes, scores, *a, **k)
+            nms_calls.append((key, boxes.shape[0], keep))
+            return keep
+        return _event_spans(spans, f"{key} nms", wrapped)
+
+    def timed_resize(self, *a, **k):
+        t = time.perf_counter()
+        out = resize(self, *a, **k)
+        pil_s[-1] += time.perf_counter() - t
+        return out
+
+    def union_box(xywh, *a, **k):
+        unions.append([float(v) for v in xywh])
+        return process_bbox(xywh, *a, **k)
+
+    def timed_detector(*a, **k):             # one photo: s on the host's clock, its PIL share
+        pil_s.append(0.0)
+        t = time.perf_counter()
+        out = hoi_detector(*a, **k)
+        image_s.append(time.perf_counter() - t)
+        return out
+
+    models = {"yolo": bundle.yolo, "frcnn": bundle.frcnn, "gdino": bundle.gdino,
+              "sam2": bundle.sam}
+    shaping = bundle.gdino.register_forward_hook(
+        lambda mod, args, out: _shape_gdino(out, raw_best))
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, key=key: outputs.setdefault(key, []).append(out))
+        for key, m in models.items()]
+    for key, m in models.items():
+        m.forward = _event_spans(spans, key, m.forward)
+    bundle.frcnn.trunk = _event_spans(spans, "frcnn trunk", bundle.frcnn.trunk)
+    bundle.frcnn.proposals = _event_spans(spans, "frcnn rpn", bundle.frcnn.proposals)
+    originals = [(stage2, "default_bundle", stage2.default_bundle),
+                 (stage2, "hoi_detector", hoi_detector),
+                 (nms_ops, "nms", nms_ops.nms), (hod, "nms", hod.nms),
+                 (hod, "roi_align", hod.roi_align), (PIL.Image.Image, "resize", resize),
+                 (segment_hoi, "process_bbox", process_bbox)]
+    dirs = [os.path.join(root, d) for d in ("occ", "crops", "crops_wo_bg", "masks", "orig")]
+    tee = _Tee(sys.stdout)
+    try:
+        nms_ops.nms = counted_nms("yolo", nms_ops.nms)
+        hod.nms = counted_nms("frcnn", hod.nms)
+        hod.roi_align = _event_spans(spans, "frcnn roi_align", hod.roi_align)
+        stage2.default_bundle = lambda device="cuda": bundle
+        stage2.hoi_detector = timed_detector
+        segment_hoi.process_bbox = union_box
+        PIL.Image.Image.resize = timed_resize
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            stage2.run(*dirs, split_path=split, device=dev)
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+        for h in hooks:
+            h.remove()
+        for m in models.values():
+            m.__dict__.pop("forward", None)
+        bundle.frcnn.__dict__.pop("trunk", None)
+        bundle.frcnn.__dict__.pop("proposals", None)
+    said = "".join(tee.parts)
+
+    # ---- checks ---------------------------------------------------------- #
+    n = len(DETECT_IDS)
+    if "Error" in said or said.count("Processed ") != n:
+        fail(f"stage 2 on the learned path reported: {said!r}")
+    occ, crops, crops_wo_bg, masks, orig = dirs
+    files, shares = {}, {}
+    for image_id in DETECT_IDS:
+        rid = 0 if os.path.exists(os.path.join(crops, f"{image_id}_cropped_hoi_0.png")) else 1
+        files[image_id] = [
+            os.path.join(orig, f"{image_id}.png"),
+            os.path.join(occ, f"{image_id}_masked_obj.png"),
+            os.path.join(crops, f"{image_id}_cropped_hoi_{rid}.png"),
+            os.path.join(crops_wo_bg, f"{image_id}_cropped_hoi_{rid}.png"),
+            os.path.join(masks, f"{image_id}_cropped_obj_mask.png"),
+            os.path.join(masks, f"{image_id}_cropped_hand_mask.png"),
+            os.path.join(masks, f"{image_id}_crop_transform.npy")]
+        missing = [os.path.relpath(f, root) for f in files[image_id] if not os.path.exists(f)]
+        if missing:
+            fail(f"stage 2 on the learned path wrote no {missing}")
+        for name in ("obj", "hand"):
+            m = np.asarray(Image.open(os.path.join(masks, f"{image_id}_cropped_{name}_mask.png")))
+            if m.shape != (crop_size(),) * 2:
+                fail(f"the {name} mask is {m.shape}, not the crop's {(crop_size(),) * 2}")
+            shares[f"{image_id} {name}"] = round(float((m > 0).mean()), 4)
+    calls = {k: len(v) for k, v in outputs.items()}
+    if calls != {"yolo": n, "frcnn": n, "gdino": 2 * n, "sam2": 2 * n}:
+        fail(f"stage 2 ran the models {calls} times on {n} photos, not YOLO and the Faster "
+             f"R-CNN once a photo and GroundingDINO and SAM2 twice")
+    bad = [k for k, outs in outputs.items() for out in outs if not _outputs_finite(k, out)]
+    if bad:
+        fail(f"the learned models gave non-finite outputs: {bad}")
+    largest = {k: max(_largest_output(k, out) for out in outs) for k, outs in outputs.items()}
+    for x, y, w, h in unions:
+        if not (0 <= x and 0 <= y and x + w <= W - 1 and y + h <= H - 1):
+            fail(f"a crop's union box {[x, y, w, h]} is not inside the {W}x{H} photo")
+
+    # two calls of each bundle function: the same bits; their host synchronisations
+    crop = np.asarray(Image.open(files[DETECT_IDS[0]][2]).convert("RGB"))
+    syncs, same = {}, {}
+    for name, fn in (("detect_hands", lambda: bundle.detect_hands(photos[0])),
+                     ("detect_hand_object", lambda: bundle.detect_hand_object(photos[0])),
+                     ("segment(object)", lambda: bundle.segment(crop, "object")),
+                     ("segment(only hand)", lambda: bundle.segment(crop, "only hand"))):
+        got = []
+        syncs[name] = _count_syncs(lambda: got.append(fn()))
+        got.append(fn())
+        same[name] = _bits(got[0]) == _bits(got[1])
+    if not all(same.values()):
+        fail(f"two calls of the learned bundle gave other bits: {same}")
+    if before_assets is None:
+        os.environ.pop("FOHO_TPU_ASSETS", None)
+    else:
+        os.environ["FOHO_TPU_ASSETS"] = before_assets
+
+    torch.cuda.synchronize()
+    ms = {k: [s.elapsed_time(e) / 1e3 for s, e in v] for k, v in spans.items()}
+    parts = []
+    for i in range(n):
+        p = {k: ms[k][i] for k in ("yolo", "yolo nms", "frcnn", "frcnn trunk", "frcnn rpn",
+                                   "frcnn nms", "frcnn roi_align")}
+        p["frcnn layer4 and heads"] = p["frcnn"] - sum(p[k] for k in (
+            "frcnn trunk", "frcnn rpn", "frcnn nms", "frcnn roi_align"))
+        p["gdino"] = ms["gdino"][2 * i:2 * i + 2]
+        p["sam2"] = ms["sam2"][2 * i:2 * i + 2]
+        p["host PIL resizes"] = pil_s[i + 1]
+        parts.append(p)
+        say(f"detect: photo {DETECT_IDS[i]} ({'first' if i == 0 else 'warm'}): "
+            f"{image_s[i]:.3f} s in hoi_detector; by part (s): "
+            + ", ".join(f"{k} {[round(x, 4) for x in v] if isinstance(v, list) else round(v, 4)}"
+                        for k, v in p.items()))
+    counts = [(key, n_in, int(keep.sum())) for key, n_in, keep in nms_calls]
+    n_anchors = sorted({k[0] * k[1] * 12 for k in bundle.frcnn._anchors})
+    say(f"detect: stage 2 on the learned path {stage_s:.3f} s for {n} photos "
+        f"({stage_s / n:.3f} s an image, files included); NMS candidates (model, in, kept): "
+        f"{counts}, of 8,400 YOLO and {n_anchors} Faster R-CNN anchors; union boxes "
+        f"{[[round(v, 1) for v in u] for u in unions]} in {W}x{H}; mask shares {shares}; "
+        f"GroundingDINO's best raw logit a call {[round(float(b), 3) for b in raw_best[:2 * n]]} "
+        f"(shifted to {_GDINO_BEST_LOGIT}); largest finite |output| per model (seeded init, "
+        f"convs N(0, 1/in_channels)) {{{', '.join(f'{k}: {v:.4g}' for k, v in largest.items())}}}; "
+        f"peak {peak_gib:.2f} GiB")
+    say(f"detect: host synchronisations per bundle call {syncs}; two calls give the same "
+        f"bits {same}")
+    shaping.remove()
+    del bundle, models, outputs, spans, nms_calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(seconds=stage_s, image_s=image_s, parts=parts, nms=counts, syncs=syncs,
+                peak_gib=peak_gib, built=built, largest=largest)
 
 
 def run_inpaint_stage(dev) -> dict:
@@ -2270,6 +2600,7 @@ def main() -> None:
         launches_pipeline = {k["name"]: 0 for k in kernels}
     t_models = time.perf_counter()
     if not args.kernels_only:
+        run_detect_phase(dev)
         launches_inpaint = run_inpaint_stage(dev)["launches"]
         ran = run_stage(dev)
         launches, hoi = ran["launches"], ran["hoi"]

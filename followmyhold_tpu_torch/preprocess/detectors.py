@@ -7,8 +7,8 @@ plug into the ``DetectorBundle`` protocol. ``HeuristicBundle`` is the
 classical stand-in the reference runs without converted weights (cv2 and
 numpy, unchanged): skin colour in YCrCb for the hand, a central-saliency
 foreground for the object. ``default_bundle`` picks as the reference picks:
-``LearnedBundle`` where its four converted files exist, which the port does
-not run yet (it raises), else the heuristic one.
+``LearnedBundle`` where its four converted files exist, else the heuristic
+one. The learned models run on the device given; the heuristics on the host.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ from typing import List, Optional, Protocol, Tuple
 
 import numpy as np
 
-from followmyhold_tpu_torch.utils.params import has_params
+from followmyhold_tpu_torch.utils.device import DeviceLike, resolve_device
+from followmyhold_tpu_torch.utils.params import has_params, init_random_, load_or_init
 
 # the converted files of the learned bundle
 LEARNED_PARAMS = ("yolov8_wilor", "hand_object_detector", "gdino", "sam2")
@@ -103,21 +104,62 @@ class HeuristicBundle:
 
 
 class LearnedBundle:
-    """The learned stack (YOLO hands, the Faster R-CNN hand-object detector,
-    GroundingDINO and SAM2) on its converted files. Not ported yet: where
-    the files exist the reference runs it, and the port raises."""
+    """The learned stack on ``device``: YOLOv8 for the hands, the Faster
+    R-CNN hand-object detector, GroundingDINO and SAM2 for the text-prompted
+    masks, at the reference's configurations (``configs`` replaces any of
+    "yolo", "frcnn", "gdino" and "sam2"). Each model loads its converted file
+    where it exists and draws seeded random weights where it does not
+    (``utils.params.load_or_init``). Nothing falls back: a model that fails to
+    build or run raises."""
 
-    def __init__(self):
-        raise NotImplementedError(
-            f"converted detector parameters {LEARNED_PARAMS} exist, but the port does not run "
-            "the learned detectors yet (YOLOv8 and the Faster R-CNN, then GroundingDINO and "
-            "SAM2: ROADMAP.md, queue 1, items 2-3); move the files away to run the heuristic "
-            "bundle")
+    def __init__(self, device: DeviceLike = "cuda", configs: Optional[dict] = None):
+        from followmyhold_tpu_torch.models.gdino import GDINO_BASE, GroundingDino
+        from followmyhold_tpu_torch.models.hand_object_detector import (
+            FrcnnConfig,
+            HandObjectDetector,
+        )
+        from followmyhold_tpu_torch.models.sam2 import SAM2_LARGE, Sam2
+        from followmyhold_tpu_torch.models.yolov8 import YOLOV8_N, YoloV8
+
+        dev = resolve_device(device)
+        cfg = {"yolo": YOLOV8_N, "frcnn": FrcnnConfig(), "gdino": GDINO_BASE,
+               "sam2": SAM2_LARGE, **(configs or {})}
+
+        def build(name, module):
+            return load_or_init(name, module, init_random_).eval()
+
+        self.yolo = build("yolov8_wilor", YoloV8(cfg["yolo"], device=dev))
+        self.frcnn = build("hand_object_detector", HandObjectDetector(cfg["frcnn"], device=dev))
+        self.gdino = build("gdino", GroundingDino(cfg["gdino"], device=dev))
+        self.sam = build("sam2", Sam2(cfg["sam2"], device=dev))
+
+    def detect_hands(self, image_rgb: np.ndarray) -> List[Detection]:
+        from followmyhold_tpu_torch.models.yolov8 import detect_hands_yolov8
+
+        return [Detection(box_xyxy=d["box"], score=d["score"], is_right=d["is_right"])
+                for d in detect_hands_yolov8(self.yolo, image_rgb)]
+
+    def detect_hand_object(self, image_rgb: np.ndarray):
+        from followmyhold_tpu_torch.models.hand_object_detector import detect_hand_object
+
+        return detect_hand_object(self.frcnn, image_rgb)
+
+    def segment(self, image_rgb: np.ndarray, prompt: str) -> np.ndarray:
+        """GroundingDINO's best box for the prompt, segmented by SAM2; empty
+        where no box passes the threshold."""
+        from followmyhold_tpu_torch.models.gdino import detect_text_prompt
+        from followmyhold_tpu_torch.models.sam2 import segment_box
+
+        boxes, _ = detect_text_prompt(self.gdino, image_rgb, prompt)
+        mask = np.zeros(image_rgb.shape[:2], bool)
+        for box in boxes[:1]:
+            mask |= segment_box(self.sam, image_rgb, box)
+        return mask
 
 
-def default_bundle() -> DetectorBundle:
-    """``LearnedBundle`` where its four converted files exist, else the
-    heuristic bundle (the pipeline runs without downloads)."""
+def default_bundle(device: DeviceLike = "cuda") -> DetectorBundle:
+    """``LearnedBundle`` on ``device`` where its four converted files exist,
+    else the heuristic bundle (the pipeline runs without downloads)."""
     if all(has_params(n) for n in LEARNED_PARAMS):
-        return LearnedBundle()
+        return LearnedBundle(device=device)
     return HeuristicBundle()

@@ -9,8 +9,9 @@ same files and names:
   {mask_dir}/{id}_cropped_obj_mask.png, {id}_cropped_hand_mask.png and
   {id}_crop_transform.npy.
 A photo whose crop exists (either hand) is skipped; a photo that fails is
-reported with its traceback and the next one runs. The crop's warp runs on
-``device``; the heuristic detectors on the host.
+reported with its traceback and the next one runs. The crop's warp and the
+learned detectors (where their converted files exist) run on ``device``; the
+heuristic detectors on the host.
 
     python -m followmyhold_tpu_torch.preprocess.get_hunyuan_input \\
         (--split_path <csv> | --image_path <image>) --occ_img_dir ... \\
@@ -68,7 +69,7 @@ def run(
         raise ValueError("Provide split_path or image_path")
 
     names = read_names(gemini_responses)
-    bundle = default_bundle()
+    bundle = default_bundle(dev)
 
     for image_id, path in items:
         try:

@@ -276,3 +276,28 @@ def _write_flux_tokenizers(assets_dir: str) -> None:
     with open(os.path.join(t5_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
         json.dump({"model": {"type": "Unigram", "unk_id": 2, "vocab": _T5_PIECES}}, f,
                   ensure_ascii=False)
+
+
+# the words of a small BERT WordPiece vocabulary for GroundingDINO's prompts
+_GDINO_WORDS = ("object", "only", "hand", "striped", "box", "cup", "bottle", "the")
+
+
+def write_gdino_vocab(assets_dir: str) -> str:
+    """A WordPiece ``vocab.txt`` under ``<assets_dir>/tokenizers/gdino``, one
+    token a line (the line number is its id): BERT's specials at their ids
+    ([PAD] 0, [UNK] 100, [CLS] 101, [SEP] 102, '.' 1012, '?' 1029, the special
+    tokens GroundingDINO's masks split on), a few prompt words, and every
+    lowercase letter alone and as a ``##`` continuation, so any lowercase
+    word tokenizes; 1,160 ids, inside the tiny BERT's 2,048. Returns the
+    file's path."""
+    tokens = [f"[unused{i}]" for i in range(1100)]
+    for i, tok in ((0, "[PAD]"), (100, "[UNK]"), (101, "[CLS]"), (102, "[SEP]"),
+                   (103, "[MASK]"), (1012, "."), (1029, "?")):
+        tokens[i] = tok
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    tokens += list(_GDINO_WORDS) + list(letters) + ["##" + c for c in letters]
+    path = os.path.join(assets_dir, "tokenizers", "gdino", "vocab.txt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(tokens) + "\n")
+    return path

@@ -20,6 +20,11 @@ The port's modules keep the Flax modules' names, so the bridge is mechanical:
 
 - ``Dense`` ``kernel [in,out]`` -> ``Linear.weight [out,in]``; ``bias`` as is;
 - ``Conv`` ``kernel [kh,kw,in,out]`` (HWIO) -> ``Conv2d.weight [out,in,kh,kw]``;
+- ``ConvTranspose`` ``kernel [kh,kw,in,out]`` -> ``ConvTranspose2d.weight
+  [in,out,kh,kw]``, flipped in space: Flax's transposed convolution applies its
+  kernel flipped (a 2x2/2 kernel K spreads a single one into K[::-1, ::-1]),
+  torch's as it is. The rule goes by the torch module's type, since a square
+  layer's kernel fits either rule's shape;
 - ``LayerNorm`` / ``RMSNorm`` / ``GroupNorm`` ``scale`` -> ``weight``; ``bias`` as is;
 - ``Embed`` ``embedding [num, features]`` -> ``Embedding.weight``, as is;
 - a scan-stacked block (``<name>/block/...``, or HaMeR head's
@@ -197,6 +202,8 @@ def flax_to_torch(params: Mapping, module: nn.Module) -> nn.Module:
     if set(params.keys()) == {"params"}:
         params = params["params"]
     own = dict(module.named_parameters())
+    transposed = {name for name, m in module.named_modules()
+                  if isinstance(m, nn.ConvTranspose2d)}
     loaded = set()
 
     def assign(name: str, value: torch.Tensor, where: str) -> None:
@@ -216,7 +223,10 @@ def flax_to_torch(params: Mapping, module: nn.Module) -> nn.Module:
         value = _as_tensor(value)
         *scope, leaf = path
         depth_at = next((i for i, name in enumerate(scope) if name in _SCAN_SCOPES), None)
-        if leaf == "kernel" and value.dim() == 4 and depth_at is None:
+        if leaf == "kernel" and depth_at is None and ".".join(scope) in transposed:
+            leaf = "weight"          # transposed conv: HWIO, flipped -> IOHW
+            value = value.flip(0, 1).permute(2, 3, 0, 1)
+        elif leaf == "kernel" and value.dim() == 4 and depth_at is None:
             leaf = "weight"          # conv: HWIO -> OIHW
             value = value.permute(3, 2, 0, 1)
         elif leaf == "kernel":

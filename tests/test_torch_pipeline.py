@@ -283,14 +283,16 @@ def test_stages_1_and_2_write_what_the_reference_writes(tiny, tmp_path, capfd):
 
 
 def test_the_learned_bundle_raises_where_its_files_exist(tmp_path, monkeypatch):
+    """With the four files present the learned bundle is chosen, and a file
+    that does not load raises: nothing falls back to the heuristics."""
     monkeypatch.setenv("FOHO_TPU_ASSETS", str(tmp_path))
     assert isinstance(TD.default_bundle(), TD.HeuristicBundle)
     os.makedirs(tmp_path / "params")
     for name in TD.LEARNED_PARAMS:
         (tmp_path / "params" / f"{name}.msgpack").write_bytes(b"")
     assert TD.LEARNED_PARAMS == ("yolov8_wilor", "hand_object_detector", "gdino", "sam2")
-    with pytest.raises(NotImplementedError, match="learned detectors"):
-        TD.default_bundle()
+    with pytest.raises(ValueError, match="yolov8_wilor.msgpack is empty"):
+        TD.default_bundle("cpu")
 
 
 # ---- the orchestrator --------------------------------------------------- #
