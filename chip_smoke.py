@@ -17,6 +17,9 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             Also the deterministic scatter-add behind every gather's gradient
             (ops/indexing.scatter_rows_add): no host sync, same bits in two
             calls, timed beside the atomic index_add_ it replaced.
+   entry    followmyhold_tpu_torch.entry.entry(): one CFG denoise step of the
+            full-width DiT, as a harness calls it; K1 at [2,16,4442,128] exactly once
+            in each of its 24 blocks, finite latents (run_entry_step).
 4. detect   stage 2 on its learned path, as a user runs it where the four converted
             detector files exist: preprocess/get_hunyuan_input.run on tools._scene.hoi_photo
             (1280x960) with preprocess.detectors.LearnedBundle at full width and depth
@@ -29,10 +32,21 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             pallas_call). Checks the stage's files, every output finite, the crop's union
             box inside the photo, the masks' shape and two calls of each bundle function
             giving the same bits; prints s per image by part, NMS candidate counts, host
-            syncs per call and peak memory (see run_detect_phase). The models are freed
-            before stage 3. The pipeline phase (9) keeps the heuristic bundle: that is what
-            default_bundle picks without converted files, and detectors on random weights
-            would feed the later stages arbitrary crops.
+            syncs per call and peak memory (see run_detect_phase). Its bundle stays for the
+            next two phases and is freed before stage 3. The pipeline phase (9) keeps the
+            heuristic bundle: that is what default_bundle picks without converted files,
+            and detectors on random weights would feed the later stages arbitrary crops.
+   hands    the hand stage's multi-hand chain on a raw 1280x960 frame of two people
+            (tools._scene.two_person_frame), as a user runs it with --multi_hand: the
+            detect phase's GroundingDINO as the person detector, ViTPose-H wholebody at
+            full width and depth on each person, the per-side NMS, HaMeR ViT-H on every
+            hand and the overlay of all of them through K3, held against its plain
+            version; then the pipeline mode's box where a ViTPose file exists (the
+            keypoint block's, not the mask's) on the HOI crops of stages 4-8. Its own
+            launch counts; s per frame by part (see run_hands_phase).
+   serve    followmyhold_tpu_torch/serve.py's server on 127.0.0.1 with the detect
+            phase's bundle resident: GET /healthz, a 404, POST /segment against the
+            bundle's own call (see run_serve_phase). Its POST /reconstruct is phase 9.
 5. inpaint  stage 3 first, as the pipeline runs it: preprocess/inpaint.run on the two
             synthetic HOI crops and hand masks that stages 4-8 use, with FLUX.1-Kontext-dev,
             the FLUX VAE, CLIP-L and T5-XXL at full width and depth (bf16, seeded random
@@ -88,21 +102,26 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             phases image by image; the exports two at once), with its own launch
             counts; checks all four PLYs, that the two poses differ, and each
             image's batched DiT prediction against its batch-2 one.
-9. pipeline the whole pipeline from one photo, as a user runs it: main.run_pipeline
-            on tools._scene.hoi_photo (1280x960, a hand holding a striped box) from an
-            env file in a temporary directory, stages 1-9 in this process at full width
+9. pipeline the whole pipeline from one photo, as a user of the server runs it: POST
+            /reconstruct of tools._scene.hoi_photo (1280x960, a hand holding a striped box)
+            to serve.py's server, whose main.run_pipeline runs from its own env file in a
+            temporary workspace, stages 1-9 in this process at full width
             (see run_pipeline_phase: each stage's build function hands over the models built
             here or by the earlier phases; FLUX.1-Kontext is built for stage 3 and freed
             after it; the field's level is set for stages 5 and 9 as in phases 5 and 6),
             with its own launch counts. Checks every artifact, the masks, both PLYs, all
             four kernels launched, no stage reporting an error, and that a second
-            run_pipeline skips every stage; prints s per image by stage (1-2, 3, 4, 5, 6,
-            7-8, 9) and of the whole, and the peak memory.
+            run_pipeline skips every stage (a wrapper of the server's run_pipeline does
+            this before the server removes its workspace), then the response's two PLYs;
+            prints s per image by stage (1-2, 3, 4, 5, 6, 7-8, 9) and of the whole, the
+            server's own seconds around the run, and the peak memory.
 10. result  the whole script's seconds, a `kernels` JSON line (`launches`: the
-            guidance stage's run of one image; `launches_stage_3`, `launches_stage_4`,
-            `launches_stages_5_8`, `launches_batched`, `launches_pipeline`: the runs of
-            stage 3, of stage 4, of stages 5-8, of the batched stage and of the
-            pipeline), the nvidia-smi line, and the `ok` JSON line.
+            guidance stage's run of one image; `launches_entry`, `launches_hands`,
+            `launches_stage_3`, `launches_stage_4`, `launches_stages_5_8`,
+            `launches_batched`, `launches_pipeline`: entry()'s step, the multi-hand
+            frame, the runs of stage 3, of stage 4, of stages 5-8, of the batched stage
+            and of the pipeline through POST /reconstruct), the nvidia-smi line, and the
+            `ok` JSON line.
 
 Tolerances, and why:
 - flash attention O (bf16): 1e-2 * max|ref| + 1e-3. The kernel rounds the
@@ -168,6 +187,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1102,6 +1122,26 @@ def _shape_gdino(out: dict, raw_best: list) -> dict:
     return out
 
 
+# the persons of the hands phase's frame
+HANDS_PERSONS = 2
+
+
+def _shape_gdino_persons(out: dict, raw_scores: list, n: int = HANDS_PERSONS) -> dict:
+    """GroundingDINO's outputs with its logits shifted so that exactly its ``n``
+    best queries pass the person detector's 0.5: the shift puts 0 halfway between
+    the n-th and the (n+1)-th query's best token logit (the raw ones of the best
+    n + 1 are appended to raw_scores). On random weights no query passes, and lifted
+    as _shape_gdino lifts them (the best to sigmoid(2)) nearly all of the 900 queries
+    pass together, each a person box to run ViTPose on. The shift keeps the queries'
+    order and the boxes; nothing else changes."""
+    logits = out["logits"]
+    per_query = torch.where(torch.isfinite(logits), logits, -float("inf")).amax(-1)
+    top = per_query.flatten().topk(n + 1).values
+    raw_scores.append(top)
+    out["logits"] = logits - (top[n - 1] + top[n]) / 2
+    return out
+
+
 def run_detect_phase(dev) -> dict:
     """Stage 2 on its learned path, as a user runs it where the four converted
     detector files exist: preprocess/get_hunyuan_input.run on a split of two photos
@@ -1123,8 +1163,9 @@ def run_detect_phase(dev) -> dict:
     for each photo (the card's parts on CUDA events, no host synchronisation added; the
     host's PIL resizes on its clock), the candidates before and after each NMS, the
     host synchronisations of each bundle call, the largest finite |output| of each model
-    (the seeded init's scale at full depth) and the peak memory. The models are freed
-    before stage 3."""
+    (the seeded init's scale at full depth) and the peak memory. The bundle is returned
+    for the hands and serve phases (its GroundingDINO finds the persons, and /segment
+    runs it), which free it before stage 3."""
     import gc
     import tempfile
 
@@ -1333,12 +1374,301 @@ def run_detect_phase(dev) -> dict:
     say(f"detect: host synchronisations per bundle call {syncs}; two calls give the same "
         f"bits {same}")
     shaping.remove()
-    del bundle, models, outputs, spans, nms_calls
+    del models, outputs, spans, nms_calls
+    gc.collect()
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(seconds=stage_s, image_s=image_s, parts=parts, nms=counts, syncs=syncs,
+                peak_gib=peak_gib, built=built, largest=largest, bundle=bundle)
+
+
+# the raw frame of the hands phase (two people side by side)
+HANDS_ID = "000006"
+# how far over the threshold the shaping puts the 4th most confident keypoint of
+# each hand block (a block needs more than 3 keypoints over 0.5)
+_VITPOSE_MARGIN = 0.05
+
+
+def _hand_block_confidences(kps: np.ndarray) -> list:
+    """The confidences of each hand block of wholebody keypoints, best first."""
+    from followmyhold_tpu_torch.models.vitpose import LEFT_HAND_SLICE, RIGHT_HAND_SLICE
+
+    return [np.sort(kps[sl, 2])[::-1] for sl in (LEFT_HAND_SLICE, RIGHT_HAND_SLICE)]
+
+
+def run_hands_phase(dev, bundle) -> dict:
+    """The hand stage's multi-hand chain on a raw frame, as a user runs it with
+    --multi_hand: hand/hamer.run(multi_hand=True, save_overlay=True) on
+    tools._scene.two_person_frame (1280x960, two people side by side), handed
+    ViTPose-H wholebody (models/vitpose.py: ViT-H, 1280 wide, 32 deep, two 256-channel
+    transposed convolutions, 133 heatmaps; bf16, seeded random weights, built on the
+    card), the detect phase's resident GroundingDINO as the GdinoPersonDetector
+    ("person." at 0.5) and HaMeR ViT-H. Random weights score no GroundingDINO query
+    over 0.5, so its logits are shifted until its two best queries pass, one box for
+    each person of the frame (_shape_gdino_persons); random
+    heatmaps may give a hand block 3 or fewer keypoints over 0.5, so each block's raw
+    count is printed and, where a block falls short, the final bias of the 42 hand
+    keypoints alone is raised until every block of every crop has 4 (the heatmaps'
+    argmaxes, the keypoints' positions, do not move). Its own launch counts. Checks: two
+    or more hands stacked in {id}.npy, one {id}_hamer_{k}.obj each, every output
+    finite, the overlay written and its render through K3 held against the plain
+    version, two calls of the ViTPose forward giving the same bits. Then the pipeline
+    mode's box where a ViTPose file exists: hand/hamer.run on the two HOI crops of
+    stages 4-8 (write_stage_inputs) with the same front end handed over must centre
+    each box on the crop side's keypoint block, not on the hand mask. Prints s per
+    frame by part (person boxes, the ViTPose forwards, the HaMeR forward per hand,
+    the overlay), the host synchronisations of one VitPoseFrontEnd.keypoints call and
+    the peak memory. The ViTPose and HaMeR models are freed after it."""
+    import tempfile
+
+    from PIL import Image
+
+    from followmyhold_tpu_torch.hand import hamer as hand
+    from followmyhold_tpu_torch.models.vitpose import build_vitpose
+    from followmyhold_tpu_torch.ops import _kernels
+    from followmyhold_tpu_torch.ops import rasterizer as R
+    from followmyhold_tpu_torch.tools._scene import two_person_frame, write_stage_inputs
+    from followmyhold_tpu_torch.utils.mesh_io import load_mesh
+
+    root = tempfile.mkdtemp(prefix="fmh_hands_")
+    frame_dir, out_dir = os.path.join(root, "frames"), os.path.join(root, "hands")
+    os.makedirs(frame_dir)
+    frame = two_person_frame()
+    Image.fromarray(frame).save(os.path.join(frame_dir, f"{HANDS_ID}.png"))
+    img01 = frame.astype(np.float32) / 255.0
+    d = write_stage_inputs(os.path.join(root, "crops"), size=512, moge_grid=(8, 8),
+                           hoi_ids=HOI_IDS)
+    hoi_crops = [np.asarray(Image.open(os.path.join(
+        d["cropped_hoi_dir"], f"{image_id}_cropped_hoi_{k % 2}.png")).convert("RGB"),
+        np.float32) / 255.0 for k, image_id in enumerate(HOI_IDS)]
+
+    t0 = time.perf_counter()
+    vitpose = build_vitpose(seed=0, device=dev)
+    hamer_model = hand._build_model(hand._default_config(), device=dev)
+    torch.cuda.synchronize()
+    n_pose = sum(p.numel() for p in vitpose.parameters()) / 1e9
+    say(f"hands: built ViTPose-H ({n_pose:.3f} billion parameters, bf16) and HaMeR at full "
+        f"width in {time.perf_counter() - t0:.1f} s")
+    front = hand.VitPoseFrontEnd(model=vitpose)
+    persons = hand.GdinoPersonDetector(model=bundle.gdino)
+    raw_scores = []
+    shaping = bundle.gdino.register_forward_hook(
+        lambda mod, args, out: _shape_gdino_persons(out, raw_scores))
+
+    # shaping ViTPose: each hand block's raw count of confident keypoints on every
+    # crop this phase gives it, and the hand keypoints' bias raised where one falls short
+    boxes = persons.person_boxes(img01)
+    crops = [crop for _, crop in hand.person_crops(img01, boxes)] + hoi_crops
+    blocks = [b for crop in crops for b in _hand_block_confidences(front.keypoints(crop))]
+    raw_counts = [int((b > 0.5).sum()) for b in blocks]
+    shift = max(0.0, max(0.5 - b[3] + _VITPOSE_MARGIN for b in blocks))
+    with torch.no_grad():
+        vitpose.final.bias[91:133] += shift
+    say(f"hands: {len(boxes)} person boxes over 0.5 (GroundingDINO's logits shifted so that "
+        f"its {HANDS_PERSONS} best queries pass; the raw best {HANDS_PERSONS + 1} "
+        f"{[round(float(b), 3) for b in raw_scores[0]]}): "
+        f"{[[round(float(v), 1) for v in b] for b in boxes]}, {len(crops) - len(hoi_crops)} "
+        f"crops of 16 px or more; confident keypoints (> 0.5) per hand block before the shaping, "
+        f"(left, right) per crop: {list(zip(raw_counts[0::2], raw_counts[1::2]))}; the hand "
+        f"keypoints' final bias raised by {shift:.4f}")
+
+    calls = {}
+    patched = [(hand, "_process_hand", "hamer"), (hand, "render_overlay", "overlay"),
+               (front, "keypoints", "vitpose"), (persons, "person_boxes", "person boxes")]
+    originals = [(owner, name, getattr(owner, name)) for owner, name, _ in patched]
+    tee = _Tee(sys.stdout)
+    try:
+        for (owner, name, key), (_, _, fn) in zip(patched, originals):
+            setattr(owner, name, _timed(fn, calls, key))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            hand.run(frame_dir, out_dir, multi_hand=True, save_overlay=True, model=hamer_model,
+                     pose_front=front, person_detector=persons, device=dev)
+        torch.cuda.synchronize()
+        frame_s = time.perf_counter() - t0
+        launches = _kernels.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        for owner, name, fn in originals:
+            if owner in (front, persons):
+                owner.__dict__.pop(name, None)
+            else:
+                setattr(owner, name, fn)
+    said = "".join(tee.parts)
+
+    # ---- checks ---------------------------------------------------------- #
+    res = np.load(os.path.join(out_dir, f"{HANDS_ID}.npy"), allow_pickle=True).item()
+    kps = np.load(os.path.join(out_dir, f"{HANDS_ID}_kps_for_guidance.npy"),
+                  allow_pickle=True).item()
+    n_hands = res["pred_vertices"].shape[0]
+    if n_hands < 2 or f"({n_hands} hand(s))" not in said:
+        fail(f"the multi-hand run stacked {n_hands} hands: {said!r}")
+    if not all(np.isfinite(np.asarray(v, np.float64)).all()
+               for v in (*res.values(), *kps.values())):
+        fail("the multi-hand run's arrays are not finite")
+    for k in range(n_hands):
+        obj = load_mesh(os.path.join(out_dir, f"{HANDS_ID}_hamer_{k}.obj"))
+        if not (obj.num_vertices == 778 and np.isfinite(obj.vertices).all()):
+            fail(f"{HANDS_ID}_hamer_{k}.obj has {obj.num_vertices} vertices or is not finite")
+    if not os.path.exists(os.path.join(out_dir, f"{HANDS_ID}_overlay.png")):
+        fail(f"the multi-hand run wrote no overlay: {said!r}")
+    if launches["raster_fwd"] < 1 or launches["raster_chunk_plan"] < 1:
+        fail(f"the multi-hand overlay did not launch K3: {launches}")
+
+    # K3 against its plain version on the overlay's render of every hand
+    cfg = hamer_model.cfg
+    faces = np.asarray(load_mesh(os.path.join(out_dir, f"{HANDS_ID}_hamer_0.obj")).faces)
+    hands = [{"pred_vertices": res["pred_vertices"][k],
+              "pred_cam_t_full": res["pred_cam_t_full"][k]} for k in range(n_hands)]
+    H, W = frame.shape[:2]
+    camera, verts, fcs, _ = hand.overlay_scene(hands, faces, (H, W),
+                                               cfg.focal_length / cfg.image_size * max(H, W), dev)
+    packed = _tile_inputs(camera, verts, fcs, hand.overlay_faces_per_tile(fcs.shape[0]))
+    fwd_ov, bwd_ov, _, got = _check_raster_shape(R, "multi-hand overlay", packed,
+                                                 torch.Generator(device=dev).manual_seed(17))
+    covered = int((got[2] >= 0).sum().item())
+    if covered == 0:
+        fail("the multi-hand overlay covers no pixel")
+
+    # the ViTPose forward: the same bits in two calls; a keypoints call's host syncs
+    x = torch.randn((1, 256, 192, 3), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    with torch.no_grad():
+        same_bits = torch.equal(vitpose(x), vitpose(x))
+    if not same_bits:
+        fail("two calls of the ViTPose forward gave other bits")
+    syncs = _count_syncs(lambda: front.keypoints(crops[0]))
+
+    # the pipeline mode's box where a ViTPose file exists: the keypoint block's
+    pipe_dir = os.path.join(root, "pipeline_mode")
+    hand.run(d["cropped_hoi_dir"], pipe_dir, mask_dir=d["mask_dir"], model=hamer_model,
+             pose_front=front, device=dev)
+    centres = {}
+    for k, image_id in enumerate(HOI_IDS):
+        box = front.hand_bbox(hoi_crops[k], k % 2 == 1)
+        mask_box = hand._hand_bbox_from_mask(
+            os.path.join(d["mask_dir"], f"{image_id}_cropped_hand_mask.png"), (512, 512))
+        got_c = np.load(os.path.join(pipe_dir, f"{image_id}.npy"),
+                        allow_pickle=True).item()["box_center"][0]
+        if box is None or not np.allclose(got_c, (box[:2] + box[2:]) / 2.0, atol=1e-3) \
+                or np.allclose(got_c, (mask_box[:2] + mask_box[2:]) / 2.0, atol=1.0):
+            fail(f"pipeline mode with a ViTPose front end: {image_id}'s box centre {got_c}, "
+                 f"the keypoint block's box {box}, the mask's {mask_box}")
+        centres[image_id] = [round(float(c), 2) for c in got_c]
+
+    n = {key: len(v) for key, v in calls.items()}
+    secs = {key: sum(v) for key, v in calls.items()}
+    say(f"hands: one {W}x{H} frame through hand/hamer.run(multi_hand=True) {frame_s:.3f} s: "
+        f"person boxes {secs['person boxes']:.4f} s ({n['person boxes']} call), ViTPose "
+        f"{secs['vitpose']:.4f} s ({n['vitpose']} crops, {secs['vitpose'] / n['vitpose']:.4f} "
+        f"s each, the host's PIL resize included), HaMeR {secs['hamer']:.4f} s ({n_hands} "
+        f"hands, {secs['hamer'] / n_hands:.4f} s each, the crop and the MANO forward "
+        f"included), overlay {secs['overlay']:.4f} s; {n_hands} hands stacked (right "
+        f"{res['right'].tolist()}); the overlay covers {covered} pixels; host "
+        f"synchronisations per VitPoseFrontEnd.keypoints call {syncs}; two ViTPose calls "
+        f"give the same bits; peak {peak_gib:.2f} GiB; launches {launches}")
+    say(f"hands: pipeline mode with the ViTPose front end centres each box on the keypoint "
+        f"block, not the mask: {centres}")
+    shaping.remove()
+    del vitpose, hamer_model, front, persons
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(root, ignore_errors=True)
-    return dict(seconds=stage_s, image_s=image_s, parts=parts, nms=counts, syncs=syncs,
-                peak_gib=peak_gib, built=built, largest=largest)
+    return dict(launches=launches, seconds=frame_s, parts=secs, hands=n_hands, syncs=syncs,
+                peak_gib=peak_gib, shift=shift, raw_counts=raw_counts,
+                raster_overlay=(fwd_ov, bwd_ov))
+
+
+def run_serve_phase(dev, bundle) -> dict:
+    """serve.py's server on 127.0.0.1 (a free port, in a thread) with the detect
+    phase's learned bundle resident, as default_bundle builds it where the four
+    converted detector files exist (GroundingDINO's logits lifted as there, so SAM2
+    runs): GET /healthz, an unknown path's 404, then POST /segment twice on a
+    1280x960 photo, each mask equal to the bundle's own call on the same photo. Prints
+    each request's seconds beside the direct call's. /reconstruct runs in the pipeline
+    phase (9), on its models."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    from followmyhold_tpu_torch import serve
+    from followmyhold_tpu_torch.tools._scene import hoi_photo
+
+    photo = hoi_photo(seed=2)
+    raw_best = []
+    shaping = bundle.gdino.register_forward_hook(
+        lambda mod, args, out: _shape_gdino(out, raw_best))
+    timings = []
+    try:
+        with _serving(serve.make_server("127.0.0.1", 0, device=dev, bundle=bundle)) as url:
+            health = _http(url + "/healthz")[:2]
+            missing = _http(url + "/nowhere")[:2]
+            if health != (200, {"status": "ok"}) or missing[0] != 404:
+                fail(f"GET /healthz answered {health}, an unknown path {missing}")
+            for _ in range(2):
+                status, body, request_s = _http(url + "/segment",
+                                                {"image": _png_b64(photo), "prompt": "object"})
+                if status != 200:
+                    fail(f"POST /segment answered {status}: {body}")
+                mask = np.asarray(Image.open(io.BytesIO(base64.b64decode(body["mask"])))) > 0
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                direct = bundle.segment(photo, "object")
+                torch.cuda.synchronize()
+                timings.append((request_s, time.perf_counter() - t))
+                if mask.shape != direct.shape or not np.array_equal(mask, direct):
+                    fail("POST /segment's mask differs from the bundle's own call")
+    finally:
+        shaping.remove()
+    say(f"serve: GET /healthz 200, an unknown path 404; POST /segment (GroundingDINO and SAM2 "
+        f"on a 1280x960 photo) answered in {[round(r, 4) for r, _ in timings]} s against "
+        f"{[round(c, 4) for _, c in timings]} s for the bundle's own call; the mask covers "
+        f"{float(mask.mean()):.4f} of the photo")
+    return dict(segment=timings)
+
+
+def run_entry_step(dev) -> dict:
+    """followmyhold_tpu_torch.entry.entry(): one CFG denoise step of the
+    full-width DiT (DIT_FULL, seeded random weights, bf16) at batch 2 on [1,3072,64]
+    latents and 1,370 condition tokens, then scheduler.step. The launch counts are
+    set to 0 just before the step and read just after: K1 at [2,16,4442,128] once in
+    each of the 24 blocks, and no other kernel. The new latents must be finite and
+    of the latents' shape. Prints the build and the step's seconds (the first call
+    and a second one); the model is freed after it."""
+    from followmyhold_tpu_torch.entry import entry
+    from followmyhold_tpu_torch.models.hunyuan import DIT_FULL
+    from followmyhold_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    fn, args = entry(device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    step_s = []
+    for k in range(2):
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        if k == 0:
+            launches = _kernels.launch_counts()
+    n_blocks = DIT_FULL.depth_double + DIT_FULL.depth_single
+    want = {k: (n_blocks if k == "flash_attention_fwd" else 0) for k in launches}
+    if launches != want:
+        fail(f"entry()'s step launched {launches}, not K1 once a block ({want})")
+    if tuple(out.shape) != tuple(args[1].shape) or not bool(torch.isfinite(out).all()):
+        fail(f"entry()'s step gave latents of shape {tuple(out.shape)} or not finite")
+    say(f"entry: entry() built the DiT in {build_s:.2f} s; one CFG denoise step "
+        f"{step_s[0]:.4f} s (first call), {step_s[1]:.4f} s (second); finite latents "
+        f"{tuple(out.shape)}; launches {launches}")
+    del fn, args, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, build_s=build_s, step_s=step_s)
 
 
 def run_inpaint_stage(dev) -> dict:
@@ -2286,7 +2616,8 @@ def run_batched_stage(dev, models) -> dict:
 
 # the photo of the pipeline phase (tools._scene.hoi_photo) and its stage groups, in
 # run_pipeline's order: each group's stage modules, whose run() is timed
-PIPELINE_ID = "000003"
+# the image id of the photo that serve.py's /reconstruct runs (its query.png)
+PIPELINE_ID = "query"
 PIPELINE_STAGES = (
     ("1-2", ("followmyhold_tpu_torch.preprocess.gemini_objname",
              "followmyhold_tpu_torch.preprocess.get_hunyuan_input")),
@@ -2316,24 +2647,75 @@ class _Tee:
         return getattr(self.stream, name)
 
 
+@contextlib.contextmanager
+def _serving(server):
+    """``server`` (serve.make_server) answering in a thread for the block ->
+    its base URL; shut down and joined after it."""
+    import threading
+
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_port}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        if thread.is_alive():
+            fail("the server's thread did not end")
+
+
+def _http(url: str, payload=None, timeout: float = 900.0) -> tuple:
+    """A GET (without ``payload``) or a JSON POST to the local server ->
+    (status, the JSON body, seconds on the host's clock)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=data),
+                                    timeout=timeout) as r:
+            status, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, body = e.code, json.loads(e.read())
+    return status, body, time.perf_counter() - t
+
+
+def _png_b64(rgb: np.ndarray) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, "PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
 def run_pipeline_phase(dev, models) -> dict:
-    """The whole pipeline from one photo, as a user runs it:
-    followmyhold_tpu_torch.main.run_pipeline on tools._scene.hoi_photo (1280x960)
-    from an env file in a temporary directory, stages 1-9 in this process at full
-    width. Each stage's build function hands over models built here or by the earlier
-    phases (seeded random weights): stage 3 FLUX.1-Kontext at full width with the
-    synthetic vocabularies (built here, freed after stage 3), stage 4 MoGe shaped
-    by _shape_moge, stage 6 HaMeR ViT-H, and stages 5 and 9 the main path's
-    Hunyuan models, whose field's logit level each build function sets for its own stage
-    on the crop stage 2 wrote (stage 5 by _stage5_level's rule on the crop without
+    """The whole pipeline from one photo, as a user of the server runs it: serve.py's
+    server on 127.0.0.1 answers POST /reconstruct with tools._scene.hoi_photo
+    (1280x960) by main.run_pipeline in a fresh temporary workspace with its own env
+    file, stages 1-9 in this process at full width, and returns the two PLYs. Each
+    stage's build function hands over models built here or by the earlier phases
+    (seeded random weights): stage 3 FLUX.1-Kontext at full width with the synthetic
+    vocabularies (built here, freed after stage 3), stage 4 MoGe shaped by
+    _shape_moge, stage 6 HaMeR ViT-H, and stages 5 and 9 the main path's Hunyuan
+    models, whose field's logit level each build function sets for its own stage on
+    the crop stage 2 wrote (stage 5 by _stage5_level's rule on the crop without
     background, stage 9 by _shape_field's on stage 3's output); the level's
-    calibration is timed apart. The launch counts are set to 0 just before the run
-    and read just after. Checks every artifact of the contract, the masks
-    non-empty, a finite object PLY and a hand PLY of 778 vertices, every kernel of
-    the path launched, and no stage reporting an error; a second run_pipeline on
-    the same directories must skip every stage and rewrite no artifact. Prints s
-    per image by stage and of the whole, and the peak memory."""
-    import contextlib
+    calibration is timed apart. The server's run_pipeline is wrapped: the launch
+    counts are set to 0 just before the real run and read just after, and before the
+    server removes its workspace the wrapper checks every artifact of the contract,
+    the masks non-empty, a finite object PLY and a hand PLY of 778 vertices, and no
+    stage reporting an error, then runs run_pipeline again on the same directories,
+    which must skip every stage and rewrite no artifact. This thread then checks the
+    response (200, both PLYs decoded: a finite object, a 778-vertex hand), the
+    wrapper's findings, and every kernel of the path launched. Prints s per image by
+    stage and of the whole, the server's own seconds around the run, and the peak
+    memory."""
+    import base64
     import gc
     import importlib
     import tempfile
@@ -2342,7 +2724,7 @@ def run_pipeline_phase(dev, models) -> dict:
     from PIL import Image
 
     from followmyhold_tpu_torch import main as orchestrator
-    from followmyhold_tpu_torch.configs import load_config
+    from followmyhold_tpu_torch import serve
     from followmyhold_tpu_torch.configs.profiles import (
         crop_size,
         moge_config,
@@ -2363,15 +2745,6 @@ def run_pipeline_phase(dev, models) -> dict:
 
     dit, vae, cond = models
     bias = vae.geo.logit.bias.detach().clone()
-    root = tempfile.mkdtemp(prefix="fmh_pipeline_")
-    photo = os.path.join(root, f"{PIPELINE_ID}.png")
-    Image.fromarray(hoi_photo()).save(photo)
-    env = os.path.join(root, "pipeline.env")
-    with open(env, "w", encoding="utf-8") as f:
-        f.write(f"# the pipeline phase of chip_smoke.py\nPROJECT_ROOT={root}\n"
-                f"BASE_DIR={root}/out\nIMAGE_PATH={photo}\nRUN_INPAINT=1\n")
-    cfg = load_config(env)
-
     t0 = time.perf_counter()
     inpainter = {"models": stage3.build_inpainter(seed=0, device=dev)}
     moge_model = stage4._build_model(moge_config(), seed=0, device=dev)
@@ -2382,6 +2755,9 @@ def run_pipeline_phase(dev, models) -> dict:
     handle = _shape_moge(moge_model, dev)
     levels, calibration = {}, {}
     calib_launches = {k: 0 for k in _kernels.launch_counts()}
+    # what the run inside the server's request hands back: its configuration,
+    # numbers and findings
+    run = {}
 
     @contextlib.contextmanager
     def calibrating(group: str):
@@ -2401,8 +2777,8 @@ def run_pipeline_phase(dev, models) -> dict:
 
     def stage5_models(*a, **k):
         if "5" not in levels:
-            crop = os.path.join(cfg.cropped_hoi_wo_bckg_path, os.listdir(
-                cfg.cropped_hoi_wo_bckg_path)[0])
+            crops = run["cfg"].cropped_hoi_wo_bckg_path
+            crop = os.path.join(crops, os.listdir(crops)[0])
             with calibrating("5"), torch.no_grad():
                 vae.geo.logit.bias.copy_(bias)
                 levels["5"] = _stage5_level(dev, models, [(PIPELINE_ID, crop)],
@@ -2413,8 +2789,8 @@ def run_pipeline_phase(dev, models) -> dict:
 
     def stage9_models(*a, **k):
         if "9" not in levels:
-            crop = os.path.join(cfg.cropped_inpainted_obj, os.listdir(
-                cfg.cropped_inpainted_obj)[0])
+            crops = run["cfg"].cropped_inpainted_obj
+            crop = os.path.join(crops, os.listdir(crops)[0])
             with calibrating("9"), torch.no_grad():
                 vae.geo.logit.bias.copy_(bias)
                 tokens, uncond = encode_condition(
@@ -2435,12 +2811,77 @@ def run_pipeline_phase(dev, models) -> dict:
         sampler_s.update(result.seconds, sampler=time.perf_counter() - t)
         return result
 
+    tee = _Tee(sys.stdout)
+    real_run = orchestrator.run_pipeline
+
+    def checked_run(cfg, device="cuda"):
+        """The server's run_pipeline: the real run, then its checks and a resumed
+        second run on the same workspace, before the server removes it. Findings
+        go to run["problems"] for the phase's thread to fail on."""
+        t_in = time.perf_counter()
+        run["cfg"], problems = cfg, run.setdefault("problems", [])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        tee.parts.clear()
+        t = time.perf_counter()
+        real_run(cfg, device=device)
+        torch.cuda.synchronize()
+        run["whole_s"] = time.perf_counter() - t
+        run["launches"] = {k: v - calib_launches[k]
+                           for k, v in _kernels.launch_counts().items()}
+        run["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        said = "".join(tee.parts)
+
+        art = artifacts_for(cfg, PIPELINE_ID, is_right=True)
+        needed = (art.original_img, art.masked_obj_img, art.cropped_hoi,
+                  art.cropped_hoi_wo_bckg, art.cropped_obj_mask, art.cropped_hand_mask,
+                  art.inpainted_obj, art.moge_fov, art.moge_mesh, art.hunyuan_hoi_mesh,
+                  art.hamer_npy, art.hamer_kps, art.hamer_mesh, art.h2m_transform,
+                  art.aligned_mano_mesh, art.guidance_obj, art.guidance_hand,
+                  os.path.join(cfg.base_dir, "gemini_responses.csv"))
+        missing = [os.path.relpath(p, cfg.project_root) for p in needed if not os.path.exists(p)]
+        if missing:
+            problems.append(f"the pipeline wrote no {missing}")
+            return
+        if "Error" in said:
+            problems.append("a stage of the pipeline reported an error: " + " | ".join(
+                line for line in said.splitlines() if "Error" in line))
+        shares = run["mask_shares"] = {}
+        for mask in (art.cropped_obj_mask, art.cropped_hand_mask):
+            m = np.asarray(Image.open(mask)) > 0
+            shares[os.path.basename(mask)] = round(float(m.mean()), 4)
+            if m.shape != (crop_size(),) * 2 or not m.any():
+                problems.append(f"the pipeline's {os.path.basename(mask)} is {m.shape} or empty")
+        t_h2m = np.load(art.h2m_transform)
+        if not (t_h2m.shape == (4, 4) and np.isfinite(t_h2m).all()):
+            problems.append(f"the pipeline's {os.path.basename(art.h2m_transform)} is {t_h2m}")
+
+        # a second run on the same directories skips every stage
+        files = sorted(os.path.join(d, f) for d, _, fs in os.walk(cfg.base_dir) for f in fs)
+        stamps = {f: os.path.getmtime(f) for f in files if "J_regressor" not in f}
+        run["first_s"] = dict(stage_s)
+        stage_s.clear()
+        tee.parts.clear()
+        t = time.perf_counter()
+        real_run(cfg, device=device)
+        torch.cuda.synchronize()
+        run["resume_s"] = time.perf_counter() - t
+        said_again = "".join(tee.parts)
+        if {f: os.path.getmtime(f) for f in stamps} != stamps or "Error" in said_again:
+            problems.append("the second run_pipeline rewrote an artifact or reported an error")
+        if said_again.count("skipping") < 8:
+            problems.append(f"the second run_pipeline did not skip every stage: "
+                            f"{said_again!r}")
+        run["wrapper_s"] = time.perf_counter() - t_in
+
     swaps = [(stage3, "_learned_inpainter", learned_inpainter),
              (GuidedSampler, "run", timed_sampler),
              (stage4, "_build_model", lambda *a, **k: moge_model),
              (hoi, "build_models", stage5_models),
              (hand, "_build_model", lambda *a, **k: hamer_model),
-             (stage9, "build_models", stage9_models)]
+             (stage9, "build_models", stage9_models),
+             (orchestrator, "run_pipeline", checked_run)]
     for group, names in PIPELINE_STAGES:
         for name in names:
             module = importlib.import_module(name)
@@ -2453,81 +2894,48 @@ def run_pipeline_phase(dev, models) -> dict:
                     torch.cuda.empty_cache()
             swaps.append((module, "run", timed))
     originals = [(owner, name, getattr(owner, name)) for owner, name, _ in swaps]
-    tee = _Tee(sys.stdout)
+    photo = hoi_photo()
     try:
         for owner, name, fn in swaps:
             setattr(owner, name, fn)
         # run_pipeline's warning filters (FOHO_SUPPRESS_WARNINGS) end with the phase
         with flux_tokenizer_assets(), contextlib.redirect_stdout(tee), \
-                warnings.catch_warnings():
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            _kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            orchestrator.run_pipeline(cfg, device=dev)
-            torch.cuda.synchronize()
-            whole_s = time.perf_counter() - t0
-            launches = {k: v - calib_launches[k] for k, v in _kernels.launch_counts().items()}
-            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-            said = "".join(tee.parts)
-
-            # ---- checks -------------------------------------------------- #
-            art = artifacts_for(cfg, PIPELINE_ID, is_right=True)
-            needed = (art.original_img, art.masked_obj_img, art.cropped_hoi,
-                      art.cropped_hoi_wo_bckg, art.cropped_obj_mask, art.cropped_hand_mask,
-                      art.inpainted_obj, art.moge_fov, art.moge_mesh, art.hunyuan_hoi_mesh,
-                      art.hamer_npy, art.hamer_kps, art.hamer_mesh, art.h2m_transform,
-                      art.aligned_mano_mesh, art.guidance_obj, art.guidance_hand,
-                      os.path.join(cfg.base_dir, "gemini_responses.csv"))
-            missing = [os.path.relpath(p, root) for p in needed if not os.path.exists(p)]
-            if missing:
-                fail(f"the pipeline wrote no {missing}")
-            if "Error" in said:
-                fail("a stage of the pipeline reported an error: "
-                     + " | ".join(line for line in said.splitlines() if "Error" in line))
-            shares = {}
-            for mask in (art.cropped_obj_mask, art.cropped_hand_mask):
-                m = np.asarray(Image.open(mask)) > 0
-                shares[os.path.basename(mask)] = round(float(m.mean()), 4)
-                if m.shape != (crop_size(),) * 2 or not m.any():
-                    fail(f"the pipeline's {os.path.basename(mask)} is {m.shape} or empty")
-            obj, hand_ply = load_mesh(art.guidance_obj), load_mesh(art.guidance_hand)
-            if not (obj.num_faces > 0 and np.isfinite(obj.vertices).all()
-                    and hand_ply.num_vertices == 778 and np.isfinite(hand_ply.vertices).all()):
-                fail(f"the pipeline's PLYs: object {obj.num_vertices} verts {obj.num_faces} "
-                     f"faces, hand {hand_ply.num_vertices} verts, or not finite")
-            t_h2m = np.load(art.h2m_transform)
-            if not (t_h2m.shape == (4, 4) and np.isfinite(t_h2m).all()):
-                fail(f"the pipeline's {os.path.basename(art.h2m_transform)} is {t_h2m}")
-
-            # a second run on the same directories skips every stage
-            files = sorted(os.path.join(d, f) for d, _, fs in os.walk(cfg.base_dir) for f in fs)
-            stamps = {f: os.path.getmtime(f) for f in files if "J_regressor" not in f}
-            first_s = dict(stage_s)
-            stage_s.clear()
-            tee.parts.clear()
-            t0 = time.perf_counter()
-            orchestrator.run_pipeline(cfg, device=dev)
-            torch.cuda.synchronize()
-            resume_s = time.perf_counter() - t0
-            said_again = "".join(tee.parts)
+                warnings.catch_warnings(), \
+                _serving(serve.make_server("127.0.0.1", 0, device=dev)) as url:
+            status, body, request_s = _http(url + "/reconstruct", {"image": _png_b64(photo)})
     finally:
         for owner, name, fn in originals:
             setattr(owner, name, fn)
         handle.remove()
         with torch.no_grad():
             vae.geo.logit.bias.copy_(bias)
-    if {f: os.path.getmtime(f) for f in stamps} != stamps or "Error" in said_again:
-        fail("the second run_pipeline rewrote an artifact or reported an error")
-    if said_again.count("skipping") < 8:
-        fail(f"the second run_pipeline did not skip every stage: {said_again!r}")
+    if status != 200:
+        fail(f"POST /reconstruct answered {status}: {body}")
+    if run.get("problems"):
+        fail("; ".join(run["problems"]))
+    if sorted(body) != ["hand_ply", "obj_ply"]:
+        fail(f"POST /reconstruct returned {sorted(body)}, not both PLYs")
+    root = tempfile.mkdtemp(prefix="fmh_served_")
+    meshes = {}
+    for key in ("obj_ply", "hand_ply"):
+        path = os.path.join(root, f"{key}.ply")
+        with open(path, "wb") as f:
+            f.write(base64.b64decode(body[key]))
+        meshes[key] = load_mesh(path)
+    obj, hand_ply = meshes["obj_ply"], meshes["hand_ply"]
+    if not (obj.num_faces > 0 and np.isfinite(obj.vertices).all()
+            and hand_ply.num_vertices == 778 and np.isfinite(hand_ply.vertices).all()):
+        fail(f"the served PLYs: object {obj.num_vertices} verts {obj.num_faces} faces, hand "
+             f"{hand_ply.num_vertices} verts, or not finite")
+    shutil.rmtree(root, ignore_errors=True)
 
+    whole_s, launches = run["whole_s"], run["launches"]
     config = optimization_config()
     n_hand, n_obj = config.optimization_steps_hand, config.optimization_steps_scale
     n_joint = config.optimization_steps_joint * (config.num_inference_steps
                                                  - config.handopt_start_step - 2)
     # the stages' own seconds: stages 5 and 9 without this script's calibration
-    per_stage = {group: sum(first_s.get(group, [0.0])) - calibration.get(group, 0.0)
+    per_stage = {group: sum(run["first_s"].get(group, [0.0])) - calibration.get(group, 0.0)
                  for group, _ in PIPELINE_STAGES}
     calib_s = sum(calibration.values())
     say(f"pipeline: stages 1-9 on one photo {whole_s - calib_s:.2f} s; s per image by stage: "
@@ -2538,10 +2946,15 @@ def run_pipeline_phase(dev, models) -> dict:
         f"{float(np.median(sampler_s['dit_steps'])):.4f} s; hand "
         f"{sampler_s['hand'] / n_hand * 1e3:.2f}, object {sampler_s['obj'] / n_obj * 1e3:.2f}, "
         f"joint {sampler_s['joint'] / n_joint * 1e3:.2f} ms per iteration); peak "
-        f"{peak_gib:.2f} GiB; mask shares {shares}; object {obj.num_faces} faces; launches "
-        f"{launches}")
+        f"{run['peak_gib']:.2f} GiB; mask shares {run['mask_shares']}; object {obj.num_faces} "
+        f"faces; launches {launches}")
     say(f"pipeline: a second run_pipeline on the same directories skipped every stage in "
-        f"{resume_s:.3f} s ({ {g: round(sum(t), 3) for g, t in stage_s.items()} })")
+        f"{run['resume_s']:.3f} s ({ {g: round(sum(t), 3) for g, t in stage_s.items()} })")
+    say(f"serve: POST /reconstruct answered 200 in {request_s:.2f} s, {run['wrapper_s']:.2f} s "
+        f"of it in the wrapped run_pipeline (the run, its checks and the resumed run): the "
+        f"server's own {request_s - run['wrapper_s']:.3f} s (the PNG, the workspace and env "
+        f"file, the PLYs in base64, HTTP); object {obj.num_vertices} verts, hand "
+        f"{hand_ply.num_vertices} verts")
 
     n_blocks = DIT_FULL.depth_double + DIT_FULL.depth_single
     want = {"flash_attention_fwd": 57 * 28 + 24 + n_blocks * (30 + config.num_inference_steps)
@@ -2555,10 +2968,10 @@ def run_pipeline_phase(dev, models) -> dict:
     if short:
         fail(f"the pipeline launched kernels fewer times than its stages run them "
              f"(launched, expected at least): {short}")
-    shutil.rmtree(root, ignore_errors=True)
     return dict(launches=launches, seconds=whole_s - calib_s, per_stage=per_stage,
-                calibration=calibration, sampler=sampler_s,
-                resume_seconds=resume_s, peak_gib=peak_gib, levels=levels)
+                calibration=calibration, sampler=sampler_s, resume_seconds=run["resume_s"],
+                peak_gib=run["peak_gib"], levels=levels, request_s=request_s,
+                server_s=request_s - run["wrapper_s"])
 
 
 def main() -> None:
@@ -2596,25 +3009,39 @@ def main() -> None:
 
     kernels = [check_flash_attention(dev), check_flash_attention_backward(dev),
                *check_rasterizer(dev)]
-    launches = launches_inpaint = launches_hoi = launches_moge = launches_batch = \
-        launches_pipeline = {k["name"]: 0 for k in kernels}
+    launches = launches_entry = launches_hands = launches_inpaint = launches_hoi = \
+        launches_moge = launches_batch = launches_pipeline = {k["name"]: 0 for k in kernels}
     t_models = time.perf_counter()
     if not args.kernels_only:
-        run_detect_phase(dev)
+        launches_entry = run_entry_step(dev)["launches"]
+        detected = run_detect_phase(dev)
+        bundle = detected.pop("bundle")
+        hands = run_hands_phase(dev, bundle)
+        launches_hands = hands["launches"]
+        run_serve_phase(dev, bundle)
+        del bundle
+        gc.collect()
+        torch.cuda.empty_cache()
         launches_inpaint = run_inpaint_stage(dev)["launches"]
         ran = run_stage(dev)
         launches, hoi = ran["launches"], ran["hoi"]
         launches_hoi, launches_moge = hoi["launches"], hoi["moge"]["launches"]
         launches_batch = ran["batched"]["launches"]
-        for k, overlay in zip(kernels[-3:-1], hoi["raster_overlay"]):
+        for k, overlay, multi in zip(kernels[-3:-1], hoi["raster_overlay"],
+                                     hands["raster_overlay"]):
             k["overlay_mesh"] = overlay
+            k["multi_hand_overlay_mesh"] = multi
         launches_pipeline = run_pipeline_phase(dev, ran.pop("models"))["launches"]
         profile_flux_step(dev)
     for k in kernels:
-        # launches: the guidance stage's run of one image; launches_stage_3, _stage_4,
+        # launches: the guidance stage's run of one image; launches_entry: entry()'s step;
+        # launches_hands: the multi-hand run of one frame; launches_stage_3, _stage_4,
         # _stages_5_8, _batched and _pipeline: the runs of stage 3, of stage 4, of stages
-        # 5-8, of the batched guidance and of run_pipeline's stages 1-9
+        # 5-8, of the batched guidance and of run_pipeline's stages 1-9 inside serve.py's
+        # POST /reconstruct
         k["launches"] = launches[k["name"]]
+        k["launches_entry"] = launches_entry[k["name"]]
+        k["launches_hands"] = launches_hands[k["name"]]
         k["launches_stage_3"] = launches_inpaint[k["name"]]
         k["launches_stage_4"] = launches_moge[k["name"]]
         k["launches_stages_5_8"] = launches_hoi[k["name"]]

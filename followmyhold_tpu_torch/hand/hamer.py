@@ -4,21 +4,30 @@ Counterpart of followmyhold_tpu/hand/hamer.py, with the same inputs
 ({id}_cropped_hoi_{is_right}.png, {id}_cropped_hand_mask.png) and outputs:
 per image {id}.npy (the full outputs, stacked over hands),
 {id}_kps_for_guidance.npy (mano_3d_kps, mano_2d_kps, cam_t), {id}_hamer.obj
-(the hand in the camera frame), optionally {id}_overlay.png, and once
-J_regressor_hamer.npy, which the guidance stage reads.
+(the hand in the camera frame; {id}_hamer_{k}.obj for each of several hands),
+optionally {id}_overlay.png, and once J_regressor_hamer.npy, which the
+guidance stage reads.
+
+The hand boxes, as the reference chooses them:
+
+- pipeline mode (one hand a crop, its side from the file name): where a
+  converted ``vitpose`` file exists, the box of the crop side's wholebody
+  keypoint block (``VitPoseFrontEnd``); where that block is not confident, or
+  there is no such file, the hand mask's box; without a mask, the whole frame;
+- ``multi_hand=True`` (raw, possibly multi-person frames): person boxes from
+  GroundingDINO prompted with "person." (``GdinoPersonDetector``, where a
+  ``gdino`` file exists; else the whole frame), ViTPose on each person, and
+  every survivor of a per-side NMS (``collect_hand_candidates``). Without a
+  ViTPose file the reference quietly takes the mask box; the port does the
+  same and says so once a run.
 
 Per hand: the box (ViTDetDataset's math: square, rescaled 2.5x), the
 256x256 patch (mirrored for a left hand), ImageNet normalisation, the
 network and the MANO forward, the left hand's x un-mirrored,
 ``cam_crop_to_full`` and the keypoints projected into the full image.
 
-The box comes from the hand mask, or is the whole frame when there is none:
-the reference's behaviour without ViTPose or GroundingDINO weights, whose
-models are not ported (ROADMAP queue 1, item 7), so ``multi_hand=True``
-raises.
-
     python -m followmyhold_tpu_torch.hand.hamer --img_folder ... --out_folder ... \\
-        [--mask_dir ...] [--save_overlay] [--device cuda]
+        [--mask_dir ...] [--multi_hand] [--save_overlay] [--device cuda]
 """
 
 from __future__ import annotations
@@ -35,9 +44,15 @@ import torch
 from PIL import Image
 
 from followmyhold_tpu_torch.configs.profiles import is_tiny
+from followmyhold_tpu_torch.models.gdino import GDINO_BASE, GroundingDino, detect_text_prompt
 from followmyhold_tpu_torch.models.hamer import Hamer, HamerConfig, hamer_forward
 from followmyhold_tpu_torch.models.mano import ManoModel, load_mano
 from followmyhold_tpu_torch.models.vit import ViTConfig
+from followmyhold_tpu_torch.models.vitpose import (
+    build_vitpose,
+    hand_candidates_from_wholebody,
+    heatmaps_to_keypoints,
+)
 from followmyhold_tpu_torch.ops.camera import (
     GuidanceCamera,
     cam_crop_to_full,
@@ -49,7 +64,7 @@ from followmyhold_tpu_torch.ops.surface import PaddedMesh, vertex_normals
 from followmyhold_tpu_torch.utils.artifacts import parse_cropped_hoi_name, should_skip
 from followmyhold_tpu_torch.utils.device import DeviceLike, resolve_device
 from followmyhold_tpu_torch.utils.mesh_io import write_obj
-from followmyhold_tpu_torch.utils.params import init_random_, load_or_init
+from followmyhold_tpu_torch.utils.params import has_params, init_random_, load_or_init
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -96,6 +111,113 @@ def _hand_bbox_from_mask(mask_path: Optional[str], img_hw) -> np.ndarray:
         if len(xs) > 0:
             return np.array([xs.min(), ys.min(), xs.max(), ys.max()], np.float32)
     return np.array([0, 0, W - 1, H - 1], np.float32)
+
+
+def person_crops(img01: np.ndarray, person_boxes=None) -> list:
+    """The crops of a frame that ViTPose runs on -> [((x0, y0), crop), ...]:
+    each person box's pixels, clamped to the frame (boxes under 16 px
+    skipped); the whole frame without boxes."""
+    H, W = img01.shape[:2]
+    if person_boxes is None or not len(person_boxes):
+        person_boxes = [np.array([0, 0, W - 1, H - 1], np.float32)]
+    crops = []
+    for pb in person_boxes:
+        x0, y0 = max(int(pb[0]), 0), max(int(pb[1]), 0)
+        x1, y1 = min(int(pb[2]) + 1, W), min(int(pb[3]) + 1, H)
+        if x1 - x0 >= 16 and y1 - y0 >= 16:
+            crops.append(((x0, y0), img01[y0:y1, x0:x1]))
+    return crops
+
+
+def collect_hand_candidates(img01: np.ndarray, pose_front: "VitPoseFrontEnd",
+                            person_boxes=None, conf_thresh: float = 0.5,
+                            nms_thresh: float = 0.5):
+    """A multi-person frame -> its hands [(box_xyxy, score, is_right), ...]:
+    ViTPose on each of ``person_crops``, the keypoint blocks' boxes mapped
+    back to the frame, then a greedy NMS of each side, lefts first."""
+    cands = []
+    for (x0, y0), crop in person_crops(img01, person_boxes):
+        for box, score, is_right in pose_front.hand_candidates(crop, conf_thresh):
+            cands.append((box + np.array([x0, y0, x0, y0], np.float32), score, is_right))
+    out = []
+    for side in (False, True):
+        side_c = [(b, s) for b, s, r in cands if r == side]
+        if not side_c:
+            continue
+        boxes = np.stack([b for b, _ in side_c])
+        scores = np.asarray([s for _, s in side_c])
+        for i in nms_boxes(boxes, scores, nms_thresh):
+            out.append((boxes[i], float(scores[i]), side))
+    return out
+
+
+class GdinoPersonDetector:
+    """Person boxes of a raw frame: GroundingDINO (``models/gdino.py``)
+    prompted with "person.", every box over 0.5. The reference puts it where
+    the original pipeline ran a ViTDet person detector, and builds it where a
+    converted ``gdino`` file exists. ``model`` is a built ``GroundingDino``
+    (default: ``GDINO_BASE`` with the file's weights, on ``device``)."""
+
+    def __init__(self, model=None, device: DeviceLike = "cuda"):
+        if model is None:
+            model = GroundingDino(GDINO_BASE, device=resolve_device(device))
+            model = load_or_init("gdino", model, init_random_).eval()
+        self.model = model
+
+    @classmethod
+    def maybe_build(cls, device: DeviceLike = "cuda") -> Optional["GdinoPersonDetector"]:
+        return cls(device=device) if has_params("gdino") else None
+
+    def person_boxes(self, img01: np.ndarray, score_thresh: float = 0.5) -> np.ndarray:
+        """[H,W,3] in [0,1] -> person boxes [N,4] xyxy in frame pixels, best first."""
+        boxes, _ = detect_text_prompt(self.model, (img01 * 255).astype(np.uint8), "person.",
+                                      box_threshold=score_thresh)
+        return boxes
+
+
+class VitPoseFrontEnd:
+    """ViTPose's wholebody keypoints -> handed hand boxes, as the reference's
+    front end. ``model`` is a built ``ViTPose`` (default:
+    ``models.vitpose.build_vitpose``, the ``vitpose`` file's weights, on
+    ``device``); the reference builds it where that file exists."""
+
+    def __init__(self, model=None, device: DeviceLike = "cuda"):
+        self.model = model if model is not None else build_vitpose(device=device)
+
+    @classmethod
+    def maybe_build(cls, device: DeviceLike = "cuda") -> Optional["VitPoseFrontEnd"]:
+        return cls(device=device) if has_params("vitpose") else None
+
+    @torch.no_grad()
+    def keypoints(self, img01: np.ndarray) -> np.ndarray:
+        """[H,W,3] in [0,1] -> the 133 wholebody keypoints [133,3] (x, y,
+        confidence) in image pixels: a PIL resize to the backbone's input on
+        the host, ImageNet normalisation, the forward on the model's device."""
+        H, W = img01.shape[:2]
+        ih, iw = self.model.cfg.backbone.img_size
+        patch = np.asarray(Image.fromarray((img01 * 255).astype(np.uint8)).resize((iw, ih)),
+                           np.float32) / 255.0
+        patch = (patch - IMAGENET_MEAN) / IMAGENET_STD
+        dev = self.model.final.weight.device
+        heatmaps = self.model(torch.from_numpy(patch[None]).to(dev))
+        kps = heatmaps_to_keypoints(heatmaps, (ih, iw))[0].cpu().numpy()
+        kps[:, 0] *= W / iw
+        kps[:, 1] *= H / ih
+        return kps
+
+    def hand_candidates(self, img01: np.ndarray, conf_thresh: float = 0.5):
+        """-> [(box_xyxy, score, is_right), ...] from the keypoint blocks."""
+        return hand_candidates_from_wholebody(self.keypoints(img01), conf_thresh)
+
+    def hand_bbox(self, img01: np.ndarray, is_right: bool,
+                  conf_thresh: float = 0.5) -> Optional[np.ndarray]:
+        """The xyxy box of the side's keypoint block, or None where it has 3
+        or fewer confident keypoints. The extent is kept as it is: the box
+        math downstream rescales it 2.5x."""
+        for box, _, side in self.hand_candidates(img01, conf_thresh):
+            if side == is_right:
+                return box
+        return None
 
 
 def _default_config() -> HamerConfig:
@@ -242,15 +364,16 @@ def run(
     multi_hand: bool = False,
     save_overlay: bool = False,
     model: Optional[Hamer] = None,
+    pose_front: Optional[VitPoseFrontEnd] = None,
+    person_detector: Optional[GdinoPersonDetector] = None,
     device: DeviceLike = "cuda",
 ) -> None:
     """Every crop of ``img_folder`` through HaMeR. ``model`` is a built
-    ``Hamer`` on ``device`` (default: ``_build_model(_default_config())``).
-    An image whose two .npy files exist is skipped."""
-    if multi_hand:
-        raise NotImplementedError(
-            "multi_hand needs the ViTPose and GroundingDINO front ends, which are not ported "
-            "yet (ROADMAP queue 1, item 7)")
+    ``Hamer`` on ``device`` (default: ``_build_model(_default_config())``);
+    ``pose_front`` a ``VitPoseFrontEnd`` and ``person_detector`` (multi-hand
+    mode only) a ``GdinoPersonDetector``, each built where its converted file
+    exists when not given, as the reference does. An image whose two .npy
+    files exist is skipped."""
     dev = resolve_device(device)
     os.makedirs(out_folder, exist_ok=True)
     cfg = model.cfg if model is not None else _default_config()
@@ -265,6 +388,14 @@ def run(
         print(f"No images found in {img_folder}")
         return
     faces = mano.faces.cpu().numpy()
+    if pose_front is None:
+        pose_front = VitPoseFrontEnd.maybe_build(dev)
+    if multi_hand and person_detector is None:
+        person_detector = GdinoPersonDetector.maybe_build(dev)
+    if multi_hand and pose_front is None:
+        print("multi_hand: no ViTPose file ('vitpose' under the assets' params), so each "
+              "frame takes its hand mask's box (or the whole frame), as the reference does "
+              "without one")
 
     for img_path in images:
         image_id, is_right = parse_cropped_hoi_name(img_path)
@@ -275,11 +406,23 @@ def run(
             continue
 
         img = np.asarray(Image.open(img_path).convert("RGB"), np.float32) / 255.0
-        mask_path = (os.path.join(mask_dir, f"{image_id}_cropped_hand_mask.png")
-                     if mask_dir else None)
-        box = _hand_bbox_from_mask(mask_path, img.shape[:2])
-        hands = [_process_hand(model, mano, cfg, img, box, is_right, rescale_factor,
-                               device=dev)]
+        # multi-hand mode keeps every per-side NMS survivor; pipeline mode one
+        # box for the crop's side
+        instances = []
+        if multi_hand and pose_front is not None:
+            person_boxes = (person_detector.person_boxes(img)
+                            if person_detector is not None else None)
+            instances = [(b, r) for b, _, r in
+                         collect_hand_candidates(img, pose_front, person_boxes=person_boxes)]
+        if not instances:
+            box = pose_front.hand_bbox(img, is_right) if pose_front is not None else None
+            if box is None:
+                mask_path = (os.path.join(mask_dir, f"{image_id}_cropped_hand_mask.png")
+                             if mask_dir else None)
+                box = _hand_bbox_from_mask(mask_path, img.shape[:2])
+            instances = [(box, is_right)]
+        hands = [_process_hand(model, mano, cfg, img, box, right, rescale_factor, device=dev)
+                 for box, right in instances]
 
         np.save(out_npy, {k: np.stack([h[k] for h in hands]) for k in _STACK_KEYS})
         np.save(kps_npy, {
@@ -313,7 +456,8 @@ def main() -> None:
     parser.add_argument("--hamer_demo_dir", default=None)
     parser.add_argument("--save_mesh", action="store_true", default=True)
     parser.add_argument("--multi_hand", action="store_true", default=False,
-                        help="raw multi-person frames (not ported: raises)")
+                        help="raw multi-person frames: keep every per-side NMS survivor "
+                             "instead of one hand a crop")
     parser.add_argument("--save_overlay", action="store_true", default=False)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()

@@ -227,6 +227,15 @@ def hoi_photo(height: int = 960, width: int = 1280, seed: int = 0) -> np.ndarray
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+
+def two_person_frame(height: int = 960, width: int = 1280, seed: int = 0) -> np.ndarray:
+    """A raw frame of two people, each holding an object: two ``hoi_photo``
+    scenes (seeds ``seed`` and ``seed + 1``) side by side, [height, width, 3]
+    uint8, the input of the hand stage's multi-hand mode."""
+    half = width // 2
+    return np.concatenate([hoi_photo(height, half, seed),
+                           hoi_photo(height, width - half, seed + 1)], axis=1)
+
 # the pieces of a small T5 Unigram vocabulary: the specials, the inpainting
 # prompt's words, single letters and punctuation
 _T5_PIECES = ([("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0), ("▁", -2.0)]

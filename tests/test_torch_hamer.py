@@ -307,9 +307,19 @@ def test_run_under_the_tiny_profile_writes_every_file_and_skips_done(tmp_path, m
     assert "000004 exists, skipping" in capsys.readouterr().out
 
 
-def test_multi_hand_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        THH.run(str(tmp_path), str(tmp_path / "out"), multi_hand=True, device="cpu")
+def test_multi_hand_raises(tmp_path, monkeypatch, capsys):
+    """``multi_hand=True`` no longer raises (the ViTPose and GroundingDINO
+    front ends are ported): without a ViTPose file it takes the mask's box,
+    as the reference does, and says so once."""
+    monkeypatch.setenv("FOHO_TPU_PROFILE", "tiny")
+    monkeypatch.setenv("FOHO_TPU_ASSETS", str(tmp_path / "assets"))
+    img_dir, mask_dir = _write_crop(str(tmp_path), "000006", True, 10)
+    out = str(tmp_path / "out")
+    THH.run(img_dir, out, mask_dir=mask_dir, multi_hand=True, device="cpu")
+    assert capsys.readouterr().out.count("no ViTPose file") == 1
+    res = np.load(os.path.join(out, "000006.npy"), allow_pickle=True).item()
+    assert res["pred_vertices"].shape == (1, 778, 3)
+    np.testing.assert_array_equal(res["box_center"][0], [37.5, 33.5])
 
 
 def test_hand_box_nms_and_names_match_reference(tmp_path):
