@@ -20,6 +20,17 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
    entry    followmyhold_tpu_torch.entry.entry(): one CFG denoise step of the
             full-width DiT, as a harness calls it; K1 at [2,16,4442,128] exactly once
             in each of its 24 blocks, finite latents (run_entry_step).
+   convert  the checkpoint converters (followmyhold_tpu_torch/convert), as a user runs
+            them, in a temporary FOHO_TPU_ASSETS that is removed afterwards (see
+            run_convert_phase): a Hunyuan3D-2 model.ckpt at full width and depth (the
+            reference's names, fp16, seeded; tools._checkpoints) through
+            convert.hunyuan's main, its three files loaded onto the card by
+            geometry/hunyuan.build_models, every parameter equal to the in-memory
+            bridge, and one CFG step of entry() on the loaded DiT (K1 24 times, the
+            bridged DiT's bits); then every other converter at published width (the
+            FLUX transformer and T5-XXL cut to 2 blocks), each loaded on the card and
+            run once. Prints each part's seconds, GB/s and file sizes, and the host's
+            and the card's peak memory.
 4. detect   stage 2 on its learned path, as a user runs it where the four converted
             detector files exist: preprocess/get_hunyuan_input.run on tools._scene.hoi_photo
             (1280x960) with preprocess.detectors.LearnedBundle at full width and depth
@@ -116,9 +127,11 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             prints s per image by stage (1-2, 3, 4, 5, 6, 7-8, 9) and of the whole, the
             server's own seconds around the run, and the peak memory.
 10. result  the whole script's seconds, a `kernels` JSON line (`launches`: the
-            guidance stage's run of one image; `launches_entry`, `launches_hands`,
+            guidance stage's run of one image; `launches_entry`, `launches_convert`,
+            `launches_hands`,
             `launches_stage_3`, `launches_stage_4`, `launches_stages_5_8`,
-            `launches_batched`, `launches_pipeline`: entry()'s step, the multi-hand
+            `launches_batched`, `launches_pipeline`: entry()'s step, the convert
+            phase's CFG step of the loaded DiT, the multi-hand
             frame, the runs of stage 3, of stage 4, of stages 5-8, of the batched stage
             and of the pipeline through POST /reconstruct), the nvidia-smi line, and the
             `ok` JSON line.
@@ -1671,6 +1684,443 @@ def run_entry_step(dev) -> dict:
     return dict(launches=launches, build_s=build_s, step_s=step_s)
 
 
+CONVERT_SEED = 14
+DETECTOR_FILES = ("yolov8_wilor", "hand_object_detector", "gdino", "sam2")
+CONVERT_CUT_DEPTH = 2          # the FLUX transformer's and T5-XXL's blocks in the phase
+
+
+def _load_transient_gib() -> float:
+    """The card's peak since the last ``reset_peak_memory_stats`` above what is
+    allocated now (GiB): what a load held on the card beyond the model it left."""
+    return (torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()) / 2 ** 30
+
+
+def _host_peak_gib() -> float:
+    """The process's peak resident host memory so far (GiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def _gb(n_bytes: float) -> float:
+    return n_bytes / 1e9
+
+
+@contextlib.contextmanager
+def _clocked(module, names, record: dict):
+    """Each function ``names`` of ``module`` timed (host wall clock, seconds
+    summed in record[name]) and its results kept (record[name + ":out"])."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            record[name] = record.get(name, 0.0) + time.perf_counter() - t0
+            record.setdefault(name + ":out", []).append(out)
+            return out
+        return wrapped
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield record
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def _same_parameters(got, want, what: str) -> None:
+    """Every parameter of ``got`` equal to ``want``'s, bit for bit."""
+    w = dict(want.named_parameters())
+    for name, p in got.named_parameters():
+        if p.dtype != w[name].dtype or not torch.equal(p, w[name]):
+            fail(f"convert: {what}'s {name} loaded from its file differs from the tree "
+                 f"bridged in memory")
+
+
+def _reports_clean(outs, what: str) -> None:
+    """Every converter's (tree, report) in ``outs`` with nothing missing or unused."""
+    for _, report in outs:
+        if report.missing_src or report.unused_src:
+            fail(f"convert: {what} left {len(report.missing_src)} missing and "
+                 f"{len(report.unused_src)} unused: {report.missing_src[:4]} "
+                 f"{report.unused_src[:4]}")
+
+
+def run_convert_phase(dev, configs: dict = None) -> dict:
+    """The checkpoint converters, as a user runs them, inside a temporary
+    FOHO_TPU_ASSETS (restored afterwards, so later phases keep their seeded
+    random weights; the directory is removed at the end).
+
+    (a) The guidance stage's three files at full width and depth: a Hunyuan3D-2
+    model.ckpt ({"model", "vae", "conditioner"} in the reference's names, fp16 as
+    published, drawn on the card from a seeded torch.Generator; tools._checkpoints)
+    written with torch.save, then convert.hunyuan's main on it, as
+    ``python -m followmyhold_tpu_torch.convert.hunyuan --ckpt`` runs it (each report
+    0 missing, 0 unused). geometry/hunyuan.build_models loads the three files onto
+    the card (has_params true for each); every parameter must equal, bit for bit,
+    the same trees converted in memory and bridged with flax_to_torch. One CFG DiT
+    step of entry() on the loaded DiT: the launch counts are set to 0 just before
+    and read just after (K1 exactly 24 times, nothing else), finite latents, the
+    same bits as the step of the bridged DiT. Prints each part's seconds and GB/s
+    (synthesising, torch.save, torch.load, converting, save_params with the file
+    sizes, read_params_file and the load onto the card) and the host's and the
+    card's peak memory.
+
+    (b) Every other converter at its published width: MoGe, HaMeR, ViTPose, the
+    FLUX VAE, CLIP-L, GroundingDINO, SAM2, the Faster R-CNN and YOLOv8-n through
+    their main at full depth; the FLUX transformer and T5-XXL through
+    convert_flux_transformer / convert_t5_encoder with depth cut to
+    CONVERT_CUT_DEPTH blocks. Each 0 missing and 0 unused, loaded on the card
+    (MoGe and HaMeR through their stage's build function, the four detectors through
+    LearnedBundle, the rest through load_params), one forward each with finite
+    outputs. ``configs`` replaces the full-size configurations (a CPU rehearsal)."""
+    import dataclasses
+    import tempfile
+
+    from followmyhold_tpu_torch.convert import common as CC
+    from followmyhold_tpu_torch.convert import flux as CF
+    from followmyhold_tpu_torch.convert import flux_text as CT
+    from followmyhold_tpu_torch.convert import gdino as CG
+    from followmyhold_tpu_torch.convert import hamer as CH
+    from followmyhold_tpu_torch.convert import hand_object as CR
+    from followmyhold_tpu_torch.convert import hunyuan as CHY
+    from followmyhold_tpu_torch.convert import moge as CM
+    from followmyhold_tpu_torch.convert import sam2 as CS
+    from followmyhold_tpu_torch.convert import vitpose as CV
+    from followmyhold_tpu_torch.convert import yolov8 as CY
+    from followmyhold_tpu_torch.entry import entry
+    from followmyhold_tpu_torch.geometry import hunyuan as GH
+    from followmyhold_tpu_torch.models import clip_text as MC
+    from followmyhold_tpu_torch.models import flux as MF
+    from followmyhold_tpu_torch.models import gdino as MG
+    from followmyhold_tpu_torch.models import hamer as MH
+    from followmyhold_tpu_torch.models import hand_object_detector as MR
+    from followmyhold_tpu_torch.models import hunyuan as MHY
+    from followmyhold_tpu_torch.models import moge as MM
+    from followmyhold_tpu_torch.models import sam2 as MS
+    from followmyhold_tpu_torch.models import t5 as MT
+    from followmyhold_tpu_torch.models import vitpose as MV
+    from followmyhold_tpu_torch.models import yolov8 as MY
+    from followmyhold_tpu_torch.ops import _kernels
+    from followmyhold_tpu_torch.tools import _checkpoints as CK
+    from followmyhold_tpu_torch.utils import params as P
+
+    cfg = {"dit": MHY.DIT_FULL, "vae": MHY.VAE_FULL, "cond": MHY.COND_FULL,
+           "moge": MM.MoGeConfig(), "hamer": MH.HamerConfig(), "vitpose": MV.ViTPoseConfig(),
+           "flux_vae": MF.FLUX_VAE, "clip": MC.CLIP_L, "yolo": MY.YOLOV8_N,
+           "frcnn": MR.FrcnnConfig(), "gdino": MG.GDINO_BASE, "sam2": MS.SAM2_LARGE,
+           "flux": dataclasses.replace(MF.FLUX_DEV, num_layers=CONVERT_CUT_DEPTH,
+                                       num_single_layers=CONVERT_CUT_DEPTH),
+           "t5": dataclasses.replace(MT.T5_XXL, num_layers=CONVERT_CUT_DEPTH),
+           **(configs or {})}
+    hunyuan = {"model": ("hunyuan_dit", MHY.HunyuanDiT(cfg["dit"], device="meta")),
+               "vae": ("hunyuan_vae", MHY.ShapeVAE(cfg["vae"], device="meta")),
+               "conditioner": ("hunyuan_cond", MHY.Conditioner(cfg["cond"], device="meta"))}
+    # (a)'s footprint on disk: the fp16 checkpoint and the float32 files, with 10 % room
+    need_gb = 1.1 * _gb(6 * sum(p.numel() for _, m in hunyuan.values() for p in m.parameters()))
+    root = tempfile.mkdtemp(prefix="fmh_convert_")
+    free_gb = _gb(shutil.disk_usage(root).free)
+    if free_gb < need_gb:
+        shutil.rmtree(root, ignore_errors=True)
+        fail(f"convert: {free_gb:.1f} GB free under {root}, the phase needs {need_gb:.1f} GB")
+    before_assets = os.environ.get("FOHO_TPU_ASSETS")
+    os.environ["FOHO_TPU_ASSETS"] = os.path.join(root, "assets")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(CONVERT_SEED)
+    draw = CK.seeded_draw(gen, torch.float16, dev)
+
+    def synthesise(name, model):
+        """(a host state dict of the reference's names, seconds, bytes)"""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sd = {k: v.cpu() for k, v in CK.state_dict(name, model, draw).items()}
+        secs = time.perf_counter() - t0
+        return sd, secs, sum(v.numel() * v.element_size() for v in sd.values())
+
+    def save(obj, path):
+        t0 = time.perf_counter()
+        torch.save(obj, path)
+        return time.perf_counter() - t0, os.path.getsize(path)
+
+    out = {}
+    try:
+        # ---- (a) Hunyuan3D-2 through the command line -------------------------- #
+        torch.cuda.reset_peak_memory_stats()
+        host0 = _host_peak_gib()
+        ckpt, synth_s, synth_b = {}, 0.0, 0
+        for key, (name, model) in hunyuan.items():
+            ckpt[key], s, b = synthesise(name, model)
+            synth_s, synth_b = synth_s + s, synth_b + b
+        path = os.path.join(root, "model.ckpt")
+        save_s, ckpt_b = save(ckpt, path)
+        del ckpt
+        gc.collect()
+        rec = {}
+        with _clocked(CHY, ("load_checkpoint", "convert_dit", "convert_vae",
+                            "convert_conditioner", "save_params"), rec), \
+                contextlib.redirect_stdout(sys.stderr):
+            t0 = time.perf_counter()
+            CHY.main(["--ckpt", path])
+            main_s = time.perf_counter() - t0
+        for n in ("convert_dit", "convert_vae", "convert_conditioner"):
+            _reports_clean(rec[n + ":out"], n)
+        files = {os.path.basename(p): os.path.getsize(p) for p in rec["save_params:out"]}
+        if sorted(files) != ["hunyuan_cond.msgpack", "hunyuan_dit.msgpack",
+                             "hunyuan_vae.msgpack"]:
+            fail(f"convert: convert.hunyuan wrote {sorted(files)}")
+        if not all(P.has_params(n) for n in ("hunyuan_dit", "hunyuan_vae", "hunyuan_cond")):
+            fail("convert: has_params is false for one of the three converted files")
+        convert_s = sum(rec[n] for n in ("convert_dit", "convert_vae", "convert_conditioner"))
+        host_a = _host_peak_gib()
+
+        t0 = time.perf_counter()
+        tree = P.read_params_file(P.params_path("hunyuan_dit"))
+        n_leaves = sum(1 for _ in P._flatten(tree))
+        read_s = time.perf_counter() - t0
+        del tree
+        torch.cuda.synchronize()
+        card_pre = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dit, vae, cond = GH.build_models(cfg["dit"], cfg["vae"], cfg["cond"], device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_transient = _load_transient_gib()
+        say(f"convert: hunyuan model.ckpt synthesised ({_gb(synth_b):.2f} GB fp16, "
+            f"{synth_s:.2f} s), torch.save {save_s:.2f} s ({_gb(ckpt_b) / save_s:.2f} GB/s); "
+            f"main {main_s:.2f} s: torch.load {rec['load_checkpoint']:.2f} s, converting "
+            f"{convert_s:.2f} s ({_gb(ckpt_b) / convert_s:.2f} GB/s of fp16 in; dit "
+            f"{rec['convert_dit']:.2f}, vae {rec['convert_vae']:.2f}, conditioner "
+            f"{rec['convert_conditioner']:.2f}), save_params {rec['save_params']:.2f} s "
+            f"({_gb(sum(files.values())) / rec['save_params']:.2f} GB/s; "
+            + ", ".join(f"{n} {_gb(b):.3f} GB" for n, b in sorted(files.items()))
+            + f"); read_params_file of hunyuan_dit {read_s:.3f} s ({n_leaves} leaves, "
+            f"{_gb(files['hunyuan_dit.msgpack']) / read_s:.1f} GB/s, a memory map); "
+            f"build_models with the three files onto the card {build_s:.2f} s "
+            f"({_gb(sum(files.values())) / build_s:.2f} GB/s; the files' pages warm; the "
+            f"card's transient above the loaded models {build_transient:.3f} GiB)")
+
+        # the same trees converted in memory and bridged
+        ckpt = CC.load_checkpoint(path)
+        fn, args = entry(cfg=cfg["dit"], device=dev)
+        latents, cond_tokens, step_index = args[1:]
+        del args                  # entry()'s own random DiT
+        for key, model, convert in (("model", dit, CHY.convert_dit), ("vae", vae, CHY.convert_vae),
+                                    ("conditioner", cond, CHY.convert_conditioner)):
+            tree, _ = convert(ckpt[key], model.cfg)
+            twin = P.flax_to_torch(tree, type(model)(model.cfg, device=dev))
+            del tree
+            _same_parameters(model, twin, key)
+            if key != "model":
+                del twin
+            else:
+                bridged = twin.eval().requires_grad_(False)
+        del ckpt
+        gc.collect()
+        step_s = []
+        for k in range(2):
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            new = fn(dit, latents, cond_tokens, step_index)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if k == 0:
+                launches = _kernels.launch_counts()
+        n_blocks = cfg["dit"].depth_double + cfg["dit"].depth_single
+        want = {k: (n_blocks if k == "flash_attention_fwd" else 0) for k in launches}
+        if launches != want:
+            fail(f"convert: the loaded DiT's CFG step launched {launches}, not {want}")
+        if not bool(torch.isfinite(new).all()):
+            fail("convert: the loaded DiT's CFG step gave latents that are not finite")
+        twin_new = fn(bridged, latents, cond_tokens, step_index)
+        if not torch.equal(new, twin_new):
+            fail("convert: the loaded DiT's CFG step differs from the bridged DiT's")
+        card_a = max(card_pre, torch.cuda.max_memory_allocated()) / 2 ** 30
+        say(f"convert: the loaded DiT, VAE and conditioner equal the in-memory bridge bit "
+            f"for bit; one CFG step {step_s[0]:.4f} s (first call), {step_s[1]:.4f} s "
+            f"(second), launches {launches}, the same bits as "
+            f"the bridged DiT's; peak memory: host {host_a:.2f} GiB (before the phase "
+            f"{host0:.2f}), card {card_a:.2f} GiB")
+        out.update(launches=launches, hunyuan=dict(
+            synth_s=synth_s, ckpt_gb=_gb(ckpt_b), save_s=save_s, main_s=main_s,
+            load_s=rec["load_checkpoint"], convert_s=convert_s, save_params_s=rec["save_params"],
+            files_gb={n: _gb(b) for n, b in files.items()}, read_s=read_s, build_s=build_s,
+            build_transient_gib=build_transient,
+            step_s=step_s, host_peak_gib=host_a, card_peak_gib=card_a))
+        del dit, vae, cond, bridged, new, twin_new, latents, cond_tokens, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (b) every other converter ------------------------------------------ #
+        from followmyhold_tpu_torch.geometry import moge as GM
+        from followmyhold_tpu_torch.hand import hamer as HH
+        from followmyhold_tpu_torch.preprocess.detectors import LearnedBundle
+        from followmyhold_tpu_torch.tools._scene import hoi_photo
+
+        def through_main(mod, convert, name, model, argv, wrap=lambda sd: sd):
+            """The checkpoint written as the reference ships it and converted by
+            ``mod.main`` (its report 0 missing, 0 unused)."""
+            sd, synth_s, synth_b = synthesise(name, model)
+            p = os.path.join(root, f"{name}.pt")
+            save_s, _ = save(wrap(sd), p)
+            del sd
+            r = {}
+            with _clocked(mod, (convert,), r), contextlib.redirect_stdout(sys.stderr):
+                t0 = time.perf_counter()
+                mod.main(argv(p))
+                secs = time.perf_counter() - t0
+            _reports_clean(r[convert + ":out"], name)
+            os.remove(p)
+            return dict(synth_s=synth_s, ckpt_gb=_gb(synth_b), save_s=save_s, main_s=secs)
+
+        def in_memory(convert, name, model, model_cfg):
+            """The depth-cut models: converted in memory and saved as ``name``."""
+            sd, synth_s, synth_b = synthesise(name, model)
+            t0 = time.perf_counter()
+            tree, report = convert(sd, model_cfg)
+            secs = time.perf_counter() - t0
+            _reports_clean([(tree, report)], name)
+            del sd
+            P.save_params(name, tree)
+            return dict(synth_s=synth_s, ckpt_gb=_gb(synth_b), save_s=None, main_s=secs)
+
+        meta, y = "meta", cfg["yolo"]
+        runs = {
+            "moge": through_main(CM, "convert_moge", "moge", MM.MoGe(cfg["moge"], device=meta),
+                                 lambda p: ["--ckpt", p], lambda sd: {"model": sd}),
+            "hamer": through_main(CH, "convert_hamer", "hamer",
+                                  MH.Hamer(cfg["hamer"], device=meta), lambda p: ["--ckpt", p],
+                                  lambda sd: {"state_dict": sd, "epoch": 0}),
+            "vitpose": through_main(CV, "convert_vitpose", "vitpose",
+                                    MV.ViTPose(cfg["vitpose"], device=meta),
+                                    lambda p: ["--ckpt", p], lambda sd: {"state_dict": sd}),
+            "flux_vae": through_main(CF, "convert_flux_vae", "flux_vae",
+                                     MF.FluxVae(cfg["flux_vae"], device=meta),
+                                     lambda p: ["--vae", p]),
+            "flux_clip": through_main(CT, "convert_clip_text", "flux_clip",
+                                      MC.ClipTextModel(cfg["clip"], device=meta),
+                                      lambda p: ["--clip_ckpt", p, "--clip_tokenizer_dir",
+                                                 os.path.join(root, "tokenizer")]),
+            "gdino": through_main(CG, "convert_gdino", "gdino",
+                                  MG.GroundingDino(cfg["gdino"], device=meta),
+                                  lambda p: ["--ckpt", p]),
+            "sam2": through_main(CS, "convert_sam2", "sam2", MS.Sam2(cfg["sam2"], device=meta),
+                                 lambda p: ["--ckpt", p], lambda sd: {"model": sd}),
+            "hand_object_detector": through_main(
+                CR, "convert_hand_object", "hand_object_detector",
+                MR.HandObjectDetector(cfg["frcnn"], device=meta), lambda p: ["--ckpt", p],
+                lambda sd: {"model": sd, "epoch": 8}),
+            "yolov8_wilor": through_main(
+                CY, "convert_yolov8", "yolov8_wilor", MY.YoloV8(y, device=meta),
+                lambda p: ["--ckpt", p, "--width", str(y.base_width), "--depth_mult",
+                           str(y.depth_mult), "--num_classes", str(y.num_classes)]),
+            "flux_transformer": in_memory(CF.convert_flux_transformer, "flux_transformer",
+                                          MF.FluxTransformer(cfg["flux"], device=meta),
+                                          cfg["flux"]),
+            "flux_t5": in_memory(CT.convert_t5_encoder, "flux_t5",
+                                 MT.T5Encoder(cfg["t5"], device=meta), cfg["t5"]),
+        }
+
+        # loaded on the card, one forward each
+        rng = np.random.default_rng(CONVERT_SEED)
+        photo = hoi_photo(seed=0)
+
+        def forward(name, build, call):
+            """``build()`` (timed as the load onto the card), then one forward."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = build()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            transient = _load_transient_gib()
+            _kernels.reset_launch_counts()
+            with torch.no_grad():
+                got = call(model)
+            torch.cuda.synchronize()
+            if not _outputs_finite("gdino" if name == "gdino" else name, got):
+                fail(f"convert: {name}'s forward on its converted file is not finite")
+            runs[name].update(load_s=load_s, transient_gib=transient, launches={
+                k: v for k, v in _kernels.launch_counts().items() if v})
+            return got
+
+        img = torch.from_numpy(rng.uniform(size=(1, 256, 256, 3)).astype(np.float32)).to(dev)
+        forward("moge", lambda: GM._build_model(cfg["moge"], device=dev),
+                lambda m: m(img, 1200))
+        forward("hamer", lambda: HH._build_model(cfg["hamer"], device=dev), lambda m: m(img))
+        vp = cfg["vitpose"].backbone.img_size
+        forward("vitpose", lambda: P.load_params("vitpose", MV.ViTPose(cfg["vitpose"], device=dev)),
+                lambda m: m(img[:, :vp[0], :vp[1]]))
+        forward("flux_vae", lambda: P.load_params("flux_vae", MF.FluxVae(cfg["flux_vae"],
+                                                                          device=dev)),
+                lambda m: m.decode(m.encode(img * 2 - 1)))
+        ids = torch.arange(cfg["clip"].max_position_embeddings, device=dev)[None] % 1000
+        forward("flux_clip", lambda: P.load_params("flux_clip",
+                                                   MC.ClipTextModel(cfg["clip"], device=dev)),
+                lambda m: m(ids))
+        forward("flux_t5", lambda: P.load_params("flux_t5", MT.T5Encoder(cfg["t5"], device=dev)),
+                lambda m: m(ids))
+        fc = cfg["flux"]
+        n_img, n_txt = 256, 32
+        forward("flux_transformer",
+                lambda: P.load_params("flux_transformer", MF.FluxTransformer(fc, device=dev)),
+                lambda m: m(torch.randn(1, n_img, fc.in_channels, device=dev),
+                            torch.randn(1, n_txt, fc.joint_dim, device=dev),
+                            torch.randn(1, fc.pooled_dim, device=dev),
+                            torch.full((1,), 0.5, device=dev),
+                            torch.from_numpy(MF.latent_ids(16, 16)).to(dev),
+                            torch.zeros(n_txt, 3, device=dev),
+                            torch.full((1,), 2.5, device=dev)))
+        # the four detectors through the stage's build function, which loads all four files
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle = LearnedBundle(device=dev, configs={k: cfg[k] for k in ("yolo", "frcnn",
+                                                                         "gdino", "sam2")})
+        torch.cuda.synchronize()
+        bundle_s = time.perf_counter() - t0
+        forward("yolov8_wilor", lambda: bundle.yolo,
+                lambda m: m(torch.rand(1, y.image_size, y.image_size, 3, device=dev)))
+        blob, _ = MR.preprocess_image(photo)
+        forward("hand_object_detector", lambda: bundle.frcnn,
+                lambda m: m(torch.from_numpy(np.ascontiguousarray(blob)).to(dev)))
+        forward("gdino", lambda: bundle.gdino,
+                lambda m: m(**{k: v.to(dev) for k, v in MG.preprocess_inputs(
+                    photo[:512, :512], np.array([[101, 2000, 1012, 102]]),
+                    cfg["gdino"].image_size).items()}))
+        s2 = cfg["sam2"].image_size
+        forward("sam2", lambda: bundle.sam,
+                lambda m: m(torch.rand(1, s2, s2, 3, device=dev),
+                            torch.tensor([[0.2, 0.2, 0.7, 0.8]], device=dev)))
+        del bundle
+        for name, r in runs.items():
+            how = (f"converted in memory {r['main_s']:.2f} s" if r["save_s"] is None else
+                   f"torch.save {r['save_s']:.2f} s, main {r['main_s']:.2f} s")
+            load = (f"onto the card {r['load_s']:.2f} s (transient above the model "
+                    f"{r['transient_gib']:.3f} GiB)" if name not in DETECTOR_FILES
+                    else "onto the card with the other detectors")
+            say(f"convert: {name}: {r['ckpt_gb']:.3f} GB fp16 synthesised in "
+                f"{r['synth_s']:.2f} s, {how}, loaded {load}; forward finite, launches "
+                f"{r['launches']}")
+        say(f"convert: LearnedBundle loaded the four detector files onto the card in "
+            f"{bundle_s:.2f} s")
+        say(f"convert: FLUX.1-Kontext's transformer and T5-XXL at full width, depth cut to "
+            f"{CONVERT_CUT_DEPTH} blocks each (double and single for the transformer); "
+            f"every report 0 missing and 0 unused; host peak {_host_peak_gib():.2f} GiB")
+        out["others"] = runs
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if before_assets is None:
+            os.environ.pop("FOHO_TPU_ASSETS", None)
+        else:
+            os.environ["FOHO_TPU_ASSETS"] = before_assets
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_inpaint_stage(dev) -> dict:
     """Stage 3 as a user runs it: preprocess/inpaint.run on the two HOI crops of
     HOI_IDS with their hand masks (write_stage_inputs, as stages 4-8 get them),
@@ -3009,11 +3459,13 @@ def main() -> None:
 
     kernels = [check_flash_attention(dev), check_flash_attention_backward(dev),
                *check_rasterizer(dev)]
-    launches = launches_entry = launches_hands = launches_inpaint = launches_hoi = \
-        launches_moge = launches_batch = launches_pipeline = {k["name"]: 0 for k in kernels}
+    launches = launches_entry = launches_convert = launches_hands = launches_inpaint = \
+        launches_hoi = launches_moge = launches_batch = launches_pipeline = \
+        {k["name"]: 0 for k in kernels}
     t_models = time.perf_counter()
     if not args.kernels_only:
         launches_entry = run_entry_step(dev)["launches"]
+        launches_convert = run_convert_phase(dev)["launches"]
         detected = run_detect_phase(dev)
         bundle = detected.pop("bundle")
         hands = run_hands_phase(dev, bundle)
@@ -3035,12 +3487,14 @@ def main() -> None:
         profile_flux_step(dev)
     for k in kernels:
         # launches: the guidance stage's run of one image; launches_entry: entry()'s step;
+        # launches_convert: the CFG step of the DiT loaded from its converted file;
         # launches_hands: the multi-hand run of one frame; launches_stage_3, _stage_4,
         # _stages_5_8, _batched and _pipeline: the runs of stage 3, of stage 4, of stages
         # 5-8, of the batched guidance and of run_pipeline's stages 1-9 inside serve.py's
         # POST /reconstruct
         k["launches"] = launches[k["name"]]
         k["launches_entry"] = launches_entry[k["name"]]
+        k["launches_convert"] = launches_convert[k["name"]]
         k["launches_hands"] = launches_hands[k["name"]]
         k["launches_stage_3"] = launches_inpaint[k["name"]]
         k["launches_stage_4"] = launches_moge[k["name"]]

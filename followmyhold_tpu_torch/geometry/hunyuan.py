@@ -76,7 +76,9 @@ def build_models(dit_cfg: Optional[DiTConfig] = None,
     ``hunyuan_vae``, ``hunyuan_cond`` under ``<assets>/params/``) where the
     file exists, as the reference does, and carries seeded random weights
     where it does not (the conditioner's unconditional embedding then zeros,
-    as in the original model). A configuration not given is the full-size
+    as in the original model). The port's ``convert.hunyuan`` writes
+    ``hunyuan_cond``; the JAX converter writes ``hunyuan_conditioner``, which
+    neither package reads. A configuration not given is the full-size
     one, or the tiny one under ``FOHO_TPU_PROFILE=tiny``."""
     dev = resolve_device(device)
     tiny = is_tiny()

@@ -41,13 +41,14 @@ from __future__ import annotations
 import mmap
 import os
 import struct
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from followmyhold_tpu_torch.configs.paths import assets_root
+from followmyhold_tpu_torch.utils.device import DeviceLike
 
 
 # the names the Flax modules give the body of an ``nn.scan`` over layers
@@ -178,6 +179,158 @@ def read_params_file(path: str) -> Any:
     return tree
 
 
+# ---- the writer ---------------------------------------------------------- #
+
+# flax.serialization.MAX_CHUNK_SIZE: an array of more bytes is written in pieces
+MAX_CHUNK_SIZE = 2 ** 30
+_NAMES = {dtype: name for name, dtype in _DTYPES.items()}
+
+
+def _sized(n: int, small: Tuple[int, int], codes: Tuple[int, int, int]) -> bytes:
+    """A msgpack length header: the fix form ``small`` = (base, limit) where
+    it fits, else the 8/16/32-bit form of ``codes`` (0 where there is none)."""
+    base, limit = small
+    if n < limit:
+        return bytes([base | n])
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code and n <= top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack cannot hold a length of {n}")
+
+
+def _int(n: int) -> bytes:
+    """msgpack's shortest form of an integer, as the msgpack package packs it."""
+    if 0 <= n < 0x80 or -0x20 <= n < 0:
+        return struct.pack(">b" if n < 0 else ">B", n)
+    for lo, hi, code, fmt in ((0, 0xFF, 0xCC, ">B"), (-0x80, -1, 0xD0, ">b"),
+                              (0, 0xFFFF, 0xCD, ">H"), (-0x8000, -1, 0xD1, ">h"),
+                              (0, 0xFFFFFFFF, 0xCE, ">I"), (-0x80000000, -1, 0xD2, ">i"),
+                              (0, 2 ** 64 - 1, 0xCF, ">Q"), (-2 ** 63, -1, 0xD3, ">q")):
+        if lo <= n <= hi:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"integer {n} does not fit msgpack")
+
+
+def _str(text: str) -> bytes:
+    raw = text.encode("utf-8")
+    return _sized(len(raw), (0xA0, 32), (0xD9, 0xDA, 0xDB)) + raw
+
+
+def _bin_header(n: int) -> bytes:
+    return _sized(n, (0, 0), (0xC4, 0xC5, 0xC6))
+
+
+def _ext_header(code: int, n: int) -> bytes:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = bytes([fixed[n]]) if n in fixed else _sized(n, (0, 0), (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", code)
+
+
+def _host_bytes(value) -> Tuple[tuple, str, np.ndarray, int]:
+    """(shape, dtype name, the C-order bytes as a flat uint8 array, item
+    size): the bytes are a view of the array's own buffer where it is
+    contiguous on the host."""
+    if isinstance(value, torch.Tensor):
+        if value.device.type == "meta":
+            raise ValueError("a meta tensor holds no values to write")
+        t = value.detach().cpu().contiguous()
+        if t.dtype not in _NAMES:
+            raise ValueError(f"tensor of dtype {t.dtype}: the writer knows {sorted(_DTYPES)}")
+        arr = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+        return tuple(t.shape), _NAMES[t.dtype], arr.reshape(-1).view(np.uint8), t.element_size()
+    arr = np.asarray(value, order="C")
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured arrays cannot be written")
+    return arr.shape, arr.dtype.name, arr.reshape(-1).view(np.uint8), arr.dtype.itemsize
+
+
+class _Encoder:
+    """msgpack onto a binary file, as ``flax.serialization.to_bytes`` lays it
+    out, for the trees a converter writes: dicts (in their order) of arrays
+    and numpy scalars. An array is extension 1 holding (shape, dtype name,
+    raw bytes), a numpy scalar extension 3, an array over ``MAX_CHUNK_SIZE``
+    bytes flax's chunked map; ints and strings make the chunked map's
+    header. Array bytes go from the array's buffer to the file."""
+
+    def __init__(self, out):
+        self.out = out
+
+    def value(self, x) -> None:
+        if isinstance(x, Mapping):
+            self._map(x)
+        elif isinstance(x, (torch.Tensor, np.ndarray)):
+            self._array(x, _EXT_NDARRAY)
+        elif isinstance(x, np.generic):
+            self._array(np.asarray(x), _EXT_NPSCALAR)
+        elif isinstance(x, int) and not isinstance(x, bool):
+            self.out.write(_int(x))
+        elif isinstance(x, str):
+            self.out.write(_str(x))
+        else:
+            raise TypeError(f"cannot write a {type(x).__name__} into a parameter file")
+
+    def _map(self, tree: Mapping) -> None:
+        keys = [str(k) for k in tree]
+        if len(set(keys)) != len(keys):
+            raise ValueError(f"dict keys have no unique string form: {keys}")
+        self.out.write(_sized(len(keys), (0x80, 16), (0, 0xDE, 0xDF)))
+        for key, value in zip(keys, tree.values()):
+            self.out.write(_str(key))
+            if isinstance(value, (torch.Tensor, np.ndarray)) and _nbytes(value) > MAX_CHUNK_SIZE:
+                self._chunked(value)
+            else:
+                self.value(value)
+
+    def _chunked(self, value) -> None:
+        """flax's ``_chunk``: {"__msgpack_chunked_array__": True, "shape":
+        {"0": n0, ...}, "chunks": {"0": flat[0:c], ...}}."""
+        shape, name, raw, itemsize = _host_bytes(value)
+        per = max(1, int(MAX_CHUNK_SIZE / itemsize)) * itemsize
+        pieces = [raw[i:i + per] for i in range(0, len(raw), per)]
+        w = self.out.write
+        w(b"\x83" + _str(_CHUNKED) + b"\xc3" + _str("shape"))
+        self._map({str(i): int(n) for i, n in enumerate(shape)})
+        w(_str("chunks") + _sized(len(pieces), (0x80, 16), (0, 0xDE, 0xDF)))
+        for i, piece in enumerate(pieces):
+            w(_str(str(i)))
+            self._raw((len(piece) // itemsize,), name, piece, _EXT_NDARRAY)
+
+    def _array(self, value, code: int) -> None:
+        shape, name, raw, _ = _host_bytes(value)
+        self._raw(shape, name, raw, code)
+
+    def _raw(self, shape: tuple, name: str, raw: np.ndarray, code: int) -> None:
+        head = (b"\x93" + _sized(len(shape), (0x90, 16), (0, 0xDC, 0xDD))
+                + b"".join(_int(int(n)) for n in shape) + _str(name) + _bin_header(len(raw)))
+        self.out.write(_ext_header(code, len(head) + len(raw)) + head)
+        self.out.write(raw)
+
+
+def _nbytes(value) -> int:
+    if isinstance(value, torch.Tensor):
+        return value.numel() * value.element_size()
+    return value.size * value.dtype.itemsize
+
+
+def save_params(name: str, params: Any) -> str:
+    """Write ``params`` (nested dicts of tensors or numpy arrays) to
+    ``<assets>/params/<name>.msgpack`` in the bytes that
+    ``flax.serialization.to_bytes`` gives the same tree, so both packages'
+    ``load_or_init`` read it; -> the path. The inverse of
+    ``read_params_file``."""
+    path = params_path(name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            _Encoder(f).value(params)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
+
+
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, Any]:
     out = {}
     for key, value in tree.items():
@@ -198,7 +351,8 @@ def _as_tensor(value) -> torch.Tensor:
 
 def flax_to_torch(params: Mapping, module: nn.Module) -> nn.Module:
     """Load a Flax parameter tree (numpy or tensor leaves) into ``module`` in
-    place, each leaf cast to its parameter's device and type."""
+    place, each leaf moved to the module's device, laid out there and cast to
+    its parameter's type."""
     if set(params.keys()) == {"params"}:
         params = params["params"]
     own = dict(module.named_parameters())
@@ -218,28 +372,34 @@ def flax_to_torch(params: Mapping, module: nn.Module) -> nn.Module:
             target.copy_(value)
         loaded.add(name)
 
+    # each leaf (a scan-stacked one, each layer) goes to the module's device as
+    # it lies in the file and is laid out there: a host-side transpose of a
+    # multi-GB leaf is a slow copy, and one layer at a time bounds the card's
+    # transient to a layer where the whole stack would be several GB in f32
+    device = next(iter(own.values())).device if own else torch.device("cpu")
     for path, value in _flatten(params).items():
         where = "/".join(str(p) for p in path)
         value = _as_tensor(value)
         *scope, leaf = path
         depth_at = next((i for i, name in enumerate(scope) if name in _SCAN_SCOPES), None)
+        layout: Callable[[torch.Tensor], torch.Tensor] = lambda v: v
         if leaf == "kernel" and depth_at is None and ".".join(scope) in transposed:
             leaf = "weight"          # transposed conv: HWIO, flipped -> IOHW
-            value = value.flip(0, 1).permute(2, 3, 0, 1)
+            layout = lambda v: v.flip(0, 1).permute(2, 3, 0, 1)
         elif leaf == "kernel" and value.dim() == 4 and depth_at is None:
             leaf = "weight"          # conv: HWIO -> OIHW
-            value = value.permute(3, 2, 0, 1)
+            layout = lambda v: v.permute(3, 2, 0, 1)
         elif leaf == "kernel":
             leaf = "weight"
-            value = value.transpose(-1, -2)
+            layout = lambda v: v.transpose(-1, -2)
         elif leaf in ("scale", "embedding"):
             leaf = "weight"
         if depth_at is not None:  # scan-stacked: the leading axis is the layer
             for i in range(value.shape[0]):
                 assign(".".join([*scope[:depth_at], str(i), *scope[depth_at + 1:], leaf]),
-                       value[i], where)
+                       layout(value[i].to(device)), where)
         else:
-            assign(".".join([*scope, leaf]), value, where)
+            assign(".".join([*scope, leaf]), layout(value.to(device)), where)
 
     missing = sorted(set(own) - loaded)
     if missing:
@@ -247,22 +407,102 @@ def flax_to_torch(params: Mapping, module: nn.Module) -> nn.Module:
     return module
 
 
+def _scan_scope(list_name: str) -> str:
+    """The Flax name of the body of the ``nn.scan`` a ModuleList stands for:
+    HaMeR head's ``layers/layer``, else ``<name>/block``."""
+    return "layer" if list_name == "layers" else "block"
+
+
+def flax_slot(module: nn.Module, name: str) -> Tuple[tuple, Any, Callable]:
+    """Where the parameter ``name`` of ``module`` lies in the Flax tree:
+    (path under "params", its layer in a scan-stacked leaf or None, the map
+    of its value into the Flax layout). The inverse of ``flax_to_torch``'s
+    rules."""
+    parts = name.split(".")
+    path, layer, owner = [], None, module
+    for i, part in enumerate(parts[:-1]):
+        if isinstance(owner, nn.ModuleList):
+            if layer is not None:
+                raise ValueError(f"{name}: a ModuleList inside a ModuleList has no Flax form")
+            layer = int(part)
+            path.append(_scan_scope(parts[i - 1]))
+        else:
+            path.append(part)
+        owner = owner._modules[part]
+    leaf, tf = parts[-1], (lambda v: v)
+    if leaf == "weight":
+        if isinstance(owner, nn.Linear):
+            leaf, tf = "kernel", lambda v: v.transpose(-1, -2)
+        elif isinstance(owner, nn.ConvTranspose2d):       # IOHW -> HWIO, flipped
+            leaf, tf = "kernel", lambda v: v.permute(2, 3, 0, 1).flip(0, 1)
+        elif isinstance(owner, nn.Conv2d):                  # OIHW -> HWIO
+            leaf, tf = "kernel", lambda v: v.permute(2, 3, 1, 0)
+        elif isinstance(owner, nn.Embedding):
+            leaf = "embedding"
+        else:                                               # a norm's scale
+            leaf = "scale"
+    return tuple(path + [leaf]), layer, tf
+
+
+def _nest(leaves: Dict[tuple, Any]) -> Dict[str, Any]:
+    """{path: leaf} -> nested dicts, every level's keys sorted as a JAX tree's."""
+    tree: Dict[str, Any] = {}
+    for path in sorted(leaves):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaves[path]
+    return tree
+
+
+def torch_to_flax(module: nn.Module) -> Dict[str, Any]:
+    """The Flax parameter tree {"params": ...} of ``module``: the inverse of
+    ``flax_to_torch``. ``weight`` becomes a ``kernel`` (Linear: transposed;
+    Conv2d: HWIO; ConvTranspose2d: HWIO flipped in space), an ``embedding``
+    (Embedding) or a ``scale`` (a norm); a ModuleList's layers are stacked on
+    a leading axis under ``<name>/block`` (``layers/layer``). Leaves are new
+    contiguous float32 tensors (the JAX models' ``param_dtype``) on the
+    module's device: a module on the meta device
+    gives the shapes and dtypes alone, the template of a converter."""
+    leaves: Dict[tuple, Any] = {}
+    stacked: Dict[tuple, Dict[int, torch.Tensor]] = {}
+    for name, p in module.named_parameters():
+        path, layer, tf = flax_slot(module, name)
+        value = tf(p.detach()).to(dtype=torch.float32,
+                                   memory_format=torch.contiguous_format, copy=True)
+        if layer is None:
+            leaves[path] = value
+        else:
+            stacked.setdefault(path, {})[layer] = value
+    for path, layers in stacked.items():
+        if sorted(layers) != list(range(len(layers))):
+            raise ValueError(f"{'/'.join(path)}: layers {sorted(layers)} are not 0..n-1")
+        leaves[path] = torch.stack([layers[i] for i in range(len(layers))])
+    return {"params": _nest(leaves)}
+
+
+def random_parameter(name: str, shape, index: int, seed: int = 0,
+                     device: DeviceLike = "cpu") -> torch.Tensor:
+    """The float32 value ``init_random_`` gives the ``index``-th parameter
+    ``name`` of ``shape``, drawn on ``device``."""
+    shape = tuple(shape)
+    if len(shape) >= 2:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed * 1_000_003 + index)
+        std = 1.0 / float(shape[1]) ** 0.5
+        return torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * std
+    if name.endswith("bias"):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return torch.ones(shape, dtype=torch.float32, device=device)
+
+
 def init_random_(module: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights, drawn on the module's device: matrices from
     N(0, 1/fan_in), norm scales one, biases zero. For smoke runs and timing;
     real weights come through a converter."""
     for index, (name, p) in enumerate(module.named_parameters()):
-        gen = torch.Generator(device=p.device)
-        gen.manual_seed(seed * 1_000_003 + index)
         with torch.no_grad():
-            if p.dim() >= 2:
-                std = 1.0 / float(p.shape[1]) ** 0.5
-                p.copy_(torch.randn(p.shape, generator=gen, device=p.device,
-                                    dtype=torch.float32) * std)
-            elif name.endswith("bias"):
-                p.zero_()
-            else:
-                p.fill_(1.0)
+            p.copy_(random_parameter(name, p.shape, index, seed, p.device))
     return module
 
 
@@ -313,6 +553,18 @@ def scheduler_config(name: str = "hunyuan_scheduler") -> dict:
         with open(path) as f:
             return json.load(f)
     return {}
+
+
+def save_scheduler_config(cfg: dict, name: str = "hunyuan_scheduler") -> str:
+    """Write the checkpoint's scheduler config where ``scheduler_config``
+    reads it (``<assets>/params/<name>.json``); -> the path."""
+    import json
+
+    path = os.path.join(assets_root(), "params", f"{name}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
 
 
 def scheduler_shift() -> float:

@@ -12,7 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "followmyhold_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "followmyhold_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "followmyhold_tpu"}
 
 
 def _sources():
@@ -34,6 +34,9 @@ def test_port_has_sources():
     assert "chip_smoke.py" in names
     assert "followmyhold_tpu_torch/ops/attention.py" in names
     assert "followmyhold_tpu_torch/diffusion/guidance.py" in names
+    for name in ("common", "vit_torch", "hunyuan", "moge", "hamer", "vitpose", "flux",
+                 "flux_text", "yolov8", "hand_object", "gdino", "sam2"):
+        assert f"followmyhold_tpu_torch/convert/{name}.py" in names, name
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.relative_to(ROOT).as_posix())
