@@ -20,6 +20,19 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
    entry    followmyhold_tpu_torch.entry.entry(): one CFG denoise step of the
             full-width DiT, as a harness calls it; K1 at [2,16,4442,128] exactly once
             in each of its 24 blocks, finite latents (run_entry_step).
+   mesh     the port's device mesh (followmyhold_tpu_torch/parallel/mesh.py), every
+            rank a process on the one card and the collectives through gloo (NCCL
+            refuses two ranks on one card), before any later phase builds a model
+            (see run_mesh_phase): (a) entry.dryrun_multichip(4), dp=2 x tp=2, the
+            guidance train step of the tiny DiT and ShapeVAE, its losses against one
+            process without a mesh; (b) entry()'s CFG step with the full-width DiT
+            sharded over tp=2 (K1 at [2,8,4442,128], 24 a rank) against the entry
+            phase's unsharded step, and the same in float32 with the plain attention;
+            (c) guidance/run.run_batch_images over dp=2 on the batched stage's two
+            scenes at full width (counts cut: MESH_DP_STEPS), each rank writing its
+            own image's PLYs, the gathered result against run_batch without a mesh.
+            Prints seconds by part, each rank's peak memory and the launches summed
+            over the ranks.
    convert  the checkpoint converters (followmyhold_tpu_torch/convert), as a user runs
             them, in a temporary FOHO_TPU_ASSETS that is removed afterwards (see
             run_convert_phase): a Hunyuan3D-2 model.ckpt at full width and depth (the
@@ -127,10 +140,12 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             prints s per image by stage (1-2, 3, 4, 5, 6, 7-8, 9) and of the whole, the
             server's own seconds around the run, and the peak memory.
 10. result  the whole script's seconds, a `kernels` JSON line (`launches`: the
-            guidance stage's run of one image; `launches_entry`, `launches_convert`,
+            guidance stage's run of one image; `launches_entry`, `launches_mesh`,
+            `launches_convert`,
             `launches_hands`,
             `launches_stage_3`, `launches_stage_4`, `launches_stages_5_8`,
-            `launches_batched`, `launches_pipeline`: entry()'s step, the convert
+            `launches_batched`, `launches_pipeline`: entry()'s step, the mesh
+            phase's ranks summed, the convert
             phase's CFG step of the loaded DiT, the multi-hand
             frame, the runs of stage 3, of stage 4, of stages 5-8, of the batched stage
             and of the pipeline through POST /reconstruct), the nvidia-smi line, and the
@@ -200,6 +215,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -269,6 +285,7 @@ def check_flash_attention(dev) -> dict:
         ("geo_cross", 4, 16, 8192, 3072, 64),
         ("dit_joint", 2, 16, 4442, 4442, 128),
         ("dit_batch", 4, 16, 4442, 4442, 128),   # the Hunyuan stage: two images with CFG
+        ("dit_tp", 2, 8, 4442, 4442, 128),   # the DiT at tp=2 (a rank's heads), alone here
         ("cond_self", 1, 24, 1370, 1370, 64),  # DINOv2-G's 40 self-attentions (ragged)
         ("moge_self", 1, 16, 3601, 3601, 64),  # MoGe's DINOv2-L, 24 a crop (ragged)
         ("flux_joint", 1, 24, 2560, 2560, 128),  # FLUX.1-Kontext, 57 a step (stage 3)
@@ -1678,10 +1695,374 @@ def run_entry_step(dev) -> dict:
     say(f"entry: entry() built the DiT in {build_s:.2f} s; one CFG denoise step "
         f"{step_s[0]:.4f} s (first call), {step_s[1]:.4f} s (second); finite latents "
         f"{tuple(out.shape)}; launches {launches}")
+    latents_in, latents = args[1].cpu(), out.cpu()
     del fn, args, out
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches=launches, build_s=build_s, step_s=step_s)
+    return dict(launches=launches, build_s=build_s, step_s=step_s, latents_in=latents_in,
+                latents=latents)
+
+
+# ---- the mesh phase -------------------------------------------------------- #
+
+# the dry run's per-image losses at dp=2 x tp=2 against the same step in one
+# process without a mesh (float32 models; the tp sums run in another order, and
+# a noise component of the two AdamW steps that steps the other way moves a
+# loss by ~1e-3)
+_MESH_DRYRUN_RTOL = 1e-3
+# entry()'s CFG step at tp=2 against the unsharded step: the relative error of
+# the step's update (new latents - latents). bf16 through 24 blocks, whose
+# row-parallel products are summed in float32 from two bf16 halves instead of
+# one bf16 product (measured 5.72e-2 on one H100)
+_MESH_TP_REL_LIMIT = 2.0 ** -3
+# the same step with the DiT in float32 and the plain attention: the sharding
+# alone, float32 sums in another order
+_MESH_TP_F32_LIMIT = 1e-4
+# the dp run's configuration: the default's, with its counts cut
+MESH_DP_STEPS = dict(num_inference_steps=6, optimization_steps_hand=2,
+                     optimization_steps_scale=2, optimization_steps_joint=2,
+                     final_octree_resolution=128)
+
+
+def _dit_f32():
+    from followmyhold_tpu_torch.models.hunyuan import DIT_FULL
+
+    return dataclasses.replace(DIT_FULL, dtype=torch.float32)
+
+
+def _plain_attention(q, k, v):
+    from followmyhold_tpu_torch.ops.attention import attention_plain
+
+    return attention_plain(q, k, v, scale=1.0 / math.sqrt(q.shape[-1]))
+
+
+def _mesh_rank(rank: int, world: int, init_file: str, out_dir: str, scene: dict,
+               device_type: str = "cuda") -> None:
+    """One of the mesh phase's two ranks (on the one card, through gloo): (b)
+    entry()'s CFG step with the full-width DiT sharded over tp=2, (c)
+    guidance/run.run_batch_images over a dp=2 mesh on the two scenes of the
+    batched stage with the full-width models; rank 0 also runs the same batch
+    through GuidedSampler.run_batch without a mesh. Writes its report to
+    out_dir/rank{rank}.pt; an exception ends the process with it. (device_type
+    "cpu" rehearses it off the card, with the models' configurations patched
+    to tiny ones.)"""
+    import torch.distributed as dist
+
+    from followmyhold_tpu_torch.configs.guidance import OptimizationConfig
+    from followmyhold_tpu_torch.diffusion.guidance import GuidedSampler
+    from followmyhold_tpu_torch.entry import entry
+    from followmyhold_tpu_torch.geometry.hunyuan import build_models, encode_condition
+    from followmyhold_tpu_torch.guidance import run as stage
+    from followmyhold_tpu_torch.models import hunyuan
+    from followmyhold_tpu_torch.models.hunyuan import COND_FULL, DIT_FULL, VAE_FULL
+    from followmyhold_tpu_torch.ops import _kernels
+    from followmyhold_tpu_torch.parallel.mesh import make_mesh, shard_model_params
+    from followmyhold_tpu_torch.utils.prng import SEED_GUIDANCE, stage_generator
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    report = dict(rank=rank, seconds={})
+    sec = report["seconds"]
+    on_card = device_type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    try:
+        tp_mesh = make_mesh("tp=2", device_type=device_type, backend="gloo")
+        dev = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
+        sec["rendezvous"] = time.perf_counter() - t0
+        if on_card:
+            _kernels.load_library()
+
+        # (b) entry()'s step, the DiT sharded over tp: in bf16 through K1 (the main
+        # path), then in float32 through the plain attention (K1 takes bf16 only),
+        # which holds the sharding itself to float32 rounding at full width
+        shapes, attention = [], hunyuan._attention
+
+        def recorded(q, k, v):
+            shapes.append(tuple(q.shape))
+            return attention(q, k, v)
+
+        for tag, cfg in (("bf16", DIT_FULL), ("f32", _dit_f32())):
+            t = time.perf_counter()
+            fn, args = entry(cfg, device=dev)
+            shard_model_params(args[0], tp_mesh)
+            sync()
+            sec[f"tp_build_{tag}"] = time.perf_counter() - t
+            hunyuan._attention = recorded if tag == "bf16" else _plain_attention
+            try:
+                _kernels.reset_launch_counts()
+                t = time.perf_counter()
+                out = fn(*args)
+                sync()
+                sec[f"tp_step_{tag}"] = time.perf_counter() - t
+            finally:
+                hunyuan._attention = attention
+            if tag == "bf16":
+                report["tp_launches"], report["tp_shapes"] = _kernels.launch_counts(), shapes
+            report[f"tp_latents_{tag}"] = out.cpu()
+            del fn, args, out
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+
+        # (c) the dp run of the batched stage's two scenes
+        dp_mesh = make_mesh("dp=2", device_type=device_type, backend="gloo")
+        t = time.perf_counter()
+        models = build_models(DIT_FULL, VAE_FULL, COND_FULL, seed=0, device=dev)
+        crop = os.path.join(scene["cropped_obj_img_dir"], f"{IMAGE_ID}_cropped_inpainted.png")
+        tokens, uncond = encode_condition(models[2], np.asarray(Image.open(crop).convert("RGBA")),
+                                          device=dev)
+        _shape_field(dev, models[0], models[1], tokens, uncond)
+        sync()
+        sec["dp_models"] = time.perf_counter() - t
+        dirs = [scene[k] for k in ("cropped_obj_img_dir", "mask_dir", "moge_out_dir",
+                                   "hunyuan_hoi_mesh_dir", "hamer_out_dir", "h2m_rt_dir",
+                                   "aligned_mano_dir", "guidance_out_dir")]
+        jobs = []
+        for image_id in BATCH_IDS:
+            job = stage._job_paths(f"{image_id}_cropped_inpainted.png", *dirs)
+            job["fovx"] = stage._read_fovx(job)
+            jobs.append(job)
+        j_reg = np.load(os.path.join(scene["hamer_out_dir"], "J_regressor_hamer.npy"))
+        config = OptimizationConfig(**MESH_DP_STEPS)
+        kept, written = {}, []
+        run_batch, export = GuidedSampler.run_batch, stage._export_and_write
+
+        def keep_run_batch(self, cond_main, uncond_main, targets, *a, **k):
+            # the first call is the stage's (the whole batch); with a mesh it
+            # calls run_batch again on this rank's images
+            outer = "cond" not in kept
+            if outer:
+                kept.update(sampler=self, cond=(cond_main, uncond_main), targets=targets)
+            result = run_batch(self, cond_main, uncond_main, targets, *a, **k)
+            if outer:
+                kept["result"] = result
+            return result
+
+        def keep_export(sampler, result, targets, config, crop_path, save_obj, save_hand,
+                        *a, **k):
+            written.extend([save_obj, save_hand])
+            return export(sampler, result, targets, config, crop_path, save_obj, save_hand,
+                          *a, **k)
+
+        GuidedSampler.run_batch, stage._export_and_write = keep_run_batch, keep_export
+        try:
+            sync()
+            _kernels.reset_launch_counts()
+            t = time.perf_counter()
+            stage.run_batch_images(jobs, config, models, j_reg, device=dev, mesh=dp_mesh)
+            sync()
+            sec["dp_run"] = time.perf_counter() - t
+            report["dp_launches"] = _kernels.launch_counts()
+        finally:
+            GuidedSampler.run_batch, stage._export_and_write = run_batch, export
+        report["dp_written"] = written
+        result = kept["result"]
+        report["dp_result"] = dict(latents=result.latents.cpu(),
+                                   noise_pred=result.noise_pred.cpu(),
+                                   hand=[x.cpu() for x in result.hand],
+                                   obj=[x.cpu() for x in result.obj],
+                                   losses={k: v.cpu() for k, v in result.losses.items()})
+        report["dp_sampler_seconds"] = result.seconds
+        report["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+        if rank == 0:
+            t = time.perf_counter()
+            cond_main, uncond_main = kept["cond"]
+            ref = kept["sampler"].run_batch(
+                cond_main, uncond_main, kept["targets"],
+                (VAE_FULL.num_latents, VAE_FULL.embed_dim), device=dev,
+                generators=[stage_generator(SEED_GUIDANCE, "guidance", i, dev)
+                            for i in BATCH_IDS])
+            sync()
+            sec["dp_reference"] = time.perf_counter() - t
+            report["dp_reference"] = dict(latents=ref.latents.cpu(),
+                                          noise_pred=ref.noise_pred.cpu(),
+                                          hand=[x.cpu() for x in ref.hand],
+                                          obj=[x.cpu() for x in ref.obj],
+                                          losses={k: v.cpu() for k, v in ref.losses.items()})
+        torch.save(report, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_phase(dev, entry_run: dict) -> dict:
+    """The port's device mesh (followmyhold_tpu_torch/parallel/mesh.py) on the one
+    card, every rank a process of its own and the collectives through gloo (NCCL
+    refuses two ranks on one card):
+
+    (a) entry.dryrun_multichip(4): dp=2 x tp=2, the tiny DiT and ShapeVAE sharded
+        over tp, one guidance train step an image (a CFG DiT forward, the joint
+        phase near the end, its AdamW steps through the decode, marching tets
+        and the renders: K3, K4 and the scatter-add; its attentions are shorter
+        than the flash path's 256 queries); its per-image losses held against
+        the same step in this process without a mesh (relative _MESH_DRYRUN_RTOL);
+    (b) entry()'s CFG step with DIT_FULL sharded over tp=2 on 2 ranks: K1 24 times
+        a rank at [2,8,4442,128] (each rank's 8 heads), the same latents on both
+        ranks, held against entry()'s unsharded step of the entry phase on the
+        same seeds (the update's relative error, _MESH_TP_REL_LIMIT); then the
+        same step with the DiT in float32 and the plain attention, against its
+        unsharded run here (_MESH_TP_F32_LIMIT: the sharding itself);
+    (c) guidance/run.run_batch_images on a dp=2 mesh of the same 2 ranks, on the
+        batched stage's two scenes with the full-width DiT, ShapeVAE and
+        DINOv2-G (the field shaped as in the main stage) and the counts cut
+        (MESH_DP_STEPS: 6 steps, 2 hand, 2 object and 2 x 2 joint iterations, the
+        export at 128^3): each rank writes its own image's PLYs, and the
+        gathered GuidanceResult is held against GuidedSampler.run_batch without
+        a mesh on the same inputs (rank 0, after): the same bits, or the
+        difference printed and held to _BATCH_REL_LIMIT.
+
+    Prints the seconds by part (the spawn with the imports, the rendezvous, each
+    part), each rank's peak memory, and the launches per kernel summed over the
+    ranks (launches_mesh: (a), (b) and (c), the reference runs left out)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from followmyhold_tpu_torch.entry import dryrun_losses, dryrun_multichip
+    from followmyhold_tpu_torch.models.hunyuan import DIT_FULL
+    from followmyhold_tpu_torch.tools._scene import write_stage_inputs
+
+    total = {}
+    # (a) ------------------------------------------------------------------- #
+    t = time.perf_counter()
+    reports = []
+    got = dryrun_multichip(4, device_type="cuda", backend="gloo", reports=reports)
+    a_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = dryrun_losses(2, device=dev).cpu().numpy()
+    ref_s = time.perf_counter() - t
+    rel = np.abs(got - want) / np.abs(want)
+    if not (np.isfinite(got).all() and got.shape == (2,) and (rel <= _MESH_DRYRUN_RTOL).all()):
+        fail(f"mesh (a): dryrun_multichip(4)'s losses {got} against one process's {want}: "
+             f"relative {rel} (limit {_MESH_DRYRUN_RTOL})")
+    for r in reports:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    # at these widths every attention has fewer than 256 queries and takes the
+    # plain version, as in the reference: K1 and K2 are not on this path
+    if not all(total.get(k) for k in ("raster_fwd", "raster_bwd", "scatter_rows_add")):
+        fail(f"mesh (a): the dry run's ranks launched {total}")
+    say(f"mesh (a): dryrun_multichip(4) (dp=2, tp=2, cuda, gloo) losses {got.tolist()} against "
+        f"{want.tolist()} without a mesh: relative {rel.max():.2e} (limit "
+        f"{_MESH_DRYRUN_RTOL:.0e}); {a_s:.1f} s in all (ranks: rendezvous "
+        f"{max(r['rendezvous_s'] for r in reports):.2f} s, step "
+        f"{max(r['step_s'] for r in reports):.2f} s; the rest spawning and imports); the "
+        f"same step in this process {ref_s:.2f} s; peak per rank "
+        f"{[round(r['peak_gib'], 3) for r in reports]} GiB; launches summed {total}")
+
+    # (b) and (c) ------------------------------------------------------------ #
+    # entry()'s unsharded step in float32 through the plain attention, for (b)
+    from followmyhold_tpu_torch.entry import entry
+    from followmyhold_tpu_torch.models import hunyuan
+
+    t = time.perf_counter()
+    fn, args = entry(_dit_f32(), device=dev)
+    attention, hunyuan._attention = hunyuan._attention, _plain_attention
+    try:
+        ref_f32 = fn(*args).cpu()
+    finally:
+        hunyuan._attention = attention
+    del fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_s = time.perf_counter() - t
+    tmp = tempfile.mkdtemp(prefix="fmh_mesh_")
+    try:
+        size = 512
+        for k, (image_id, fov) in enumerate(zip(BATCH_IDS, BATCH_FOVS)):
+            scene = write_stage_inputs(os.path.join(tmp, "scene"), image_id=image_id, size=size,
+                                       moge_grid=(size * 3 // 4, size), fov_deg=fov, seed=k)
+        t = time.perf_counter()
+        mp.spawn(_mesh_rank, nprocs=2, join=True,
+                 args=(2, os.path.join(tmp, "rendezvous"), tmp, scene))
+        bc_s = time.perf_counter() - t
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (b)
+    n_blocks = DIT_FULL.depth_double + DIT_FULL.depth_single
+    lat0 = entry_run["latents_in"]
+    refs = dict(bf16=entry_run["latents"], f32=ref_f32)
+    limits = dict(bf16=_MESH_TP_REL_LIMIT, f32=_MESH_TP_F32_LIMIT)
+    tp_rel = {tag: [] for tag in refs}
+    for r in ranks:
+        k1 = r["tp_launches"]
+        if k1 != {k: (n_blocks if k == "flash_attention_fwd" else 0) for k in k1}:
+            fail(f"mesh (b): rank {r['rank']}'s tp step launched {k1}, not K1 once a block")
+        if set(r["tp_shapes"]) != {(2, DIT_FULL.heads // 2, 4442, DIT_FULL.hidden
+                                    // DIT_FULL.heads)}:
+            fail(f"mesh (b): rank {r['rank']}'s attention shapes {set(r['tp_shapes'])}")
+        for tag, ref in refs.items():
+            tp_rel[tag].append(_rel_err(r[f"tp_latents_{tag}"] - lat0, ref - lat0))
+        for k, v in k1.items():
+            total[k] += v
+    for tag in refs:
+        if not torch.equal(ranks[0][f"tp_latents_{tag}"], ranks[1][f"tp_latents_{tag}"]):
+            fail(f"mesh (b): the two tp ranks hold other {tag} latents")
+        if not all(math.isfinite(x) and x <= limits[tag] for x in tp_rel[tag]):
+            fail(f"mesh (b): the {tag} tp=2 step's update differs from the unsharded one by "
+                 f"{tp_rel[tag]} relative (limit {limits[tag]})")
+    sec = [r["seconds"] for r in ranks]
+    say(f"mesh (b): entry()'s CFG step at tp=2 on 2 ranks: K1 {n_blocks} times a rank at "
+        f"{list(ranks[0]['tp_shapes'][0])}; the update against the unsharded step: bf16 "
+        f"relative {max(tp_rel['bf16']):.2e} (limit {_MESH_TP_REL_LIMIT:.2e}), float32 with the "
+        f"plain attention {max(tp_rel['f32']):.2e} (limit {_MESH_TP_F32_LIMIT:.0e}); build and "
+        f"shard {max(x['tp_build_bf16'] for x in sec):.2f} s, step bf16 "
+        f"{max(x['tp_step_bf16'] for x in sec):.3f} s, float32 "
+        f"{max(x['tp_step_f32'] for x in sec):.3f} s (the unsharded float32 reference here "
+        f"{f32_s:.2f} s with its build)")
+
+    # (c)
+    for r, image_id in zip(ranks, BATCH_IDS):
+        if sorted(os.path.basename(p) for p in r["dp_written"]) != [
+                f"{image_id}_hand.ply", f"{image_id}_obj.ply"]:
+            fail(f"mesh (c): rank {r['rank']} wrote {r['dp_written']}, not {image_id}'s files")
+        for k, v in r["dp_launches"].items():
+            total[k] += v
+        if not r["dp_launches"]["flash_attention_bwd"] or not r["dp_launches"]["raster_bwd"]:
+            fail(f"mesh (c): rank {r['rank']}'s dp run launched {r['dp_launches']}")
+    got, want = ranks[1]["dp_result"], ranks[0]["dp_reference"]
+
+    def leaves(x):
+        return [("latents", x["latents"]), ("noise_pred", x["noise_pred"]),
+                *((f"hand.{i}", v) for i, v in enumerate(x["hand"])),
+                *((f"obj.{i}", v) for i, v in enumerate(x["obj"])),
+                *((f"losses.{k}", x["losses"][k]) for k in sorted(x["losses"]))]
+
+    if sorted(got["losses"]) != sorted(want["losses"]):
+        fail(f"mesh (c): phases {sorted(got['losses'])} against {sorted(want['losses'])}")
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(leaves(got), leaves(want)))
+    diffs = {n: (a.float() - b.float()).abs().max().item()
+             for (n, a), (_, b) in zip(leaves(got), leaves(want))}
+    dp_rel = max(_rel_err(got[k], want[k]) for k in ("latents", "noise_pred"))
+    if not all(torch.equal(a, b) for (_, a), (_, b) in zip(leaves(ranks[0]["dp_result"]),
+                                                             leaves(got))):
+        fail("mesh (c): the two dp ranks returned other results")
+    if not (math.isfinite(dp_rel) and dp_rel <= _BATCH_REL_LIMIT):
+        fail(f"mesh (c): the dp=2 run differs from run_batch without a mesh by {dp_rel} "
+             f"relative (limit {_BATCH_REL_LIMIT}); max |diff| by leaf {diffs}")
+    bits = "the same bits" if same else f"NOT the same bits: max |diff| by leaf {diffs}"
+    sampler_s = [round(sum(x["dit_steps"]) + x["hand"] + x["obj"] + x["joint"], 2)
+                 for x in (r["dp_sampler_seconds"] for r in ranks)]
+    say(f"mesh (c): run_batch_images on dp=2 ({MESH_DP_STEPS}) against run_batch without a "
+        f"mesh: {bits}; each rank wrote its own image's PLYs; models built and the field "
+        f"shaped {max(x['dp_models'] for x in sec):.2f} s, the dp run "
+        f"{[round(x['dp_run'], 2) for x in sec]} s (sampler {sampler_s} s), the reference "
+        f"without a mesh (two images) {sec[0]['dp_reference']:.2f} s")
+    rendezvous = [round(x["rendezvous"], 2) for x in sec]
+    say(f"mesh: (b) and (c) {bc_s:.1f} s in all: rendezvous {rendezvous} s, the rest of it "
+        f"spawning and imports; peak per rank "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB; launches summed over the ranks "
+        f"(a, b, c) {total}")
+    return dict(launches=total, dryrun_rel=rel.tolist(), tp_rel=tp_rel, dp_same_bits=same,
+                dp_diffs=diffs, seconds=dict(a=a_s, bc=bc_s, ranks=sec))
 
 
 CONVERT_SEED = 14
@@ -3459,12 +3840,15 @@ def main() -> None:
 
     kernels = [check_flash_attention(dev), check_flash_attention_backward(dev),
                *check_rasterizer(dev)]
-    launches = launches_entry = launches_convert = launches_hands = launches_inpaint = \
-        launches_hoi = launches_moge = launches_batch = launches_pipeline = \
-        {k["name"]: 0 for k in kernels}
+    launches = launches_entry = launches_mesh = launches_convert = launches_hands = \
+        launches_inpaint = launches_hoi = launches_moge = launches_batch = \
+        launches_pipeline = {k["name"]: 0 for k in kernels}
     t_models = time.perf_counter()
     if not args.kernels_only:
-        launches_entry = run_entry_step(dev)["launches"]
+        entry_run = run_entry_step(dev)
+        launches_entry = entry_run["launches"]
+        launches_mesh = run_mesh_phase(dev, entry_run)["launches"]
+        del entry_run
         launches_convert = run_convert_phase(dev)["launches"]
         detected = run_detect_phase(dev)
         bundle = detected.pop("bundle")
@@ -3487,6 +3871,7 @@ def main() -> None:
         profile_flux_step(dev)
     for k in kernels:
         # launches: the guidance stage's run of one image; launches_entry: entry()'s step;
+        # launches_mesh: the mesh phase's ranks (the dry run, the tp step, the dp run);
         # launches_convert: the CFG step of the DiT loaded from its converted file;
         # launches_hands: the multi-hand run of one frame; launches_stage_3, _stage_4,
         # _stages_5_8, _batched and _pipeline: the runs of stage 3, of stage 4, of stages
@@ -3494,6 +3879,7 @@ def main() -> None:
         # POST /reconstruct
         k["launches"] = launches[k["name"]]
         k["launches_entry"] = launches_entry[k["name"]]
+        k["launches_mesh"] = launches_mesh[k["name"]]
         k["launches_convert"] = launches_convert[k["name"]]
         k["launches_hands"] = launches_hands[k["name"]]
         k["launches_stage_3"] = launches_inpaint[k["name"]]

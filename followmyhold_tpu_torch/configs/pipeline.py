@@ -3,7 +3,8 @@ with the derived output directories.
 
 The port's copy of followmyhold_tpu/configs/pipeline.py: the same keys,
 defaults, BASE_DIR directory grammar and errors. ``mesh_shape`` (MESH_SHAPE)
-stays the string it is; nothing of the port reads it yet.
+stays the string it is, in the grammar of ``parallel.mesh.parse_mesh_shape``
+("dp=4,tp=2", one axis -1 to fill); the orchestrator runs in one process.
 """
 
 from __future__ import annotations

@@ -666,6 +666,7 @@ class GuidedSampler:
         generators: Optional[Sequence[torch.Generator]] = None,  # one per image
         device: DeviceLike = "cuda",
         debugs: Optional[Sequence] = None,                       # a DebugDir per image
+        mesh=None,                   # a DeviceMesh with a "dp" axis
     ) -> GuidanceResult:
         """The guided loop over B images at once. Each image keeps its own
         targets, and with them its own field of view; its initial latents are
@@ -677,7 +678,18 @@ class GuidedSampler:
         counts read back to the host, and batching them waits for static
         capacities (ROADMAP 2.E part 1). Capacity warnings carry "(batched)".
         -> a GuidanceResult whose leaves lead with B; ``losses[tag]`` is
-        [B, iterations]."""
+        [B, iterations].
+
+        With a ``mesh`` (``parallel.make_mesh``), every rank calls it with the
+        whole batch's inputs and runs the images of its dp index (B must
+        divide by dp), each with its own slice of ``initial_noise`` or its own
+        generator; the leaves are then gathered over dp, so every rank returns
+        the result of the run without a mesh (``seconds`` stays its own). A
+        failure on any rank of the axis raises on all of them."""
+        if mesh is not None and "dp" in (mesh.mesh_dim_names or ()):
+            return self._run_batch_sharded(
+                mesh, cond_main, uncond_main, targets, latent_shape, initial_noise,
+                generators, device, debugs)
         cfg = self.config
         dev = resolve_device(device)
         n = cfg.num_inference_steps
@@ -744,6 +756,38 @@ class GuidedSampler:
         return GuidanceResult(latents=latents[:, None], noise_pred=noise_pred[:, None],
                               hand=stacked(hands), obj=stacked(objs), losses=loss_log,
                               seconds=seconds)
+
+    def _run_batch_sharded(self, mesh, cond_main, uncond_main, targets, latent_shape,
+                           initial_noise, generators, device, debugs) -> GuidanceResult:
+        """``run_batch`` on this rank's images, its leaves gathered over dp."""
+        from followmyhold_tpu_torch.parallel.mesh import batch_sharding
+
+        shard = batch_sharding(mesh, "dp")
+
+        def part(x):
+            return None if x is None else shard.shard(x if torch.is_tensor(x) else list(x))
+
+        local, error = None, None
+        try:
+            local = self.run_batch(
+                part(cond_main), part(uncond_main), part(targets), latent_shape,
+                initial_noise=part(initial_noise), generators=part(generators),
+                device=device, debugs=part(debugs))
+        except Exception as e:      # every rank learns of it before the gather
+            error = e
+        if not shard.all_ok(error is None):
+            if error is not None:
+                raise error
+            raise RuntimeError("GuidedSampler.run_batch failed on another rank of the mesh")
+
+        def poses(p):
+            return PoseParams(*(shard.gather(x) for x in p))
+
+        return GuidanceResult(
+            latents=shard.gather(local.latents), noise_pred=shard.gather(local.noise_pred),
+            hand=poses(local.hand), obj=poses(local.obj),
+            losses={tag: shard.gather(c) for tag, c in local.losses.items()},
+            seconds=local.seconds)
 
     @torch.no_grad()
     def _debug_mesh_dump(self, debug, tag, noise_pred, latents, sched, step_i):

@@ -23,10 +23,18 @@ sampler in a one-worker pool, as the reference does. With ``batch_size > 1``
 exports through a two-worker pool, so that one image's host extraction
 overlaps the other's device decode.
 
+On several cards, one process a card (``torchrun``): the ranks form a dp mesh
+over each batch (``parallel.make_mesh``; dp is the largest divisor of the
+batch no larger than the ranks, a short last batch takes a smaller one), each
+rank runs its images and writes their files, and ``run_batch`` gathers the
+results. With ``--batch_size 1`` the ranks take the images in turn. The
+backend is NCCL on cards and gloo on the CPU (``--device cpu``).
+
     python -m followmyhold_tpu_torch.guidance.run --project_root R \\
         --cropped_obj_img_dir ... --mask_dir ... --moge_out_dir ... \\
         --hunyuan_hoi_mesh_dir ... --hamer_out_dir ... --h2m_rt_dir ... \\
         --aligned_mano_dir ... --guidance_out_dir ... [--batch_size 2] [--device cuda]
+    torchrun --nproc_per_node=N -m followmyhold_tpu_torch.guidance.run ... --batch_size B
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from PIL import Image
 
 from followmyhold_tpu_torch.configs.guidance import OptimizationConfig
@@ -219,44 +228,64 @@ def run_hunyuan_w_guid(
 
 
 def run_batch_images(image_jobs: Sequence[dict], config: OptimizationConfig, models,
-                     j_regressor: Optional[np.ndarray] = None, device: DeviceLike = "cuda"):
+                     j_regressor: Optional[np.ndarray] = None, device: DeviceLike = "cuda",
+                     mesh=None):
     """Several images through the stage at once: per image ``build_targets``
     (with its own field of view), ``encode_condition`` and the initial noise
     of its own stage stream, as ``run_hunyuan_w_guid`` draws it; then one
     ``GuidedSampler.run_batch``; then the exports through a two-worker pool
     (the native library's calls release the interpreter lock, so one image's
     host extraction overlaps the other's device decode). ``image_jobs`` are
-    dicts of ``run_hunyuan_w_guid``'s path arguments and ``fovx``. -> each
-    image's ``_export_and_write`` result."""
+    dicts of ``run_hunyuan_w_guid``'s path arguments and ``fovx``. With a dp
+    ``mesh`` every rank of it calls this with the whole batch: ``run_batch``
+    runs each rank's images, and each rank exports and writes its own images
+    only. -> each image's ``_export_and_write`` result (None for an image
+    another rank owns)."""
     dev = resolve_device(device)
+    owned = range(len(image_jobs))
+    if mesh is not None:
+        from followmyhold_tpu_torch.parallel.mesh import batch_sharding
+
+        if tuple(mesh.mesh_dim_names or ()) != ("dp",):
+            raise ValueError(f"run_batch_images takes a dp mesh, not {mesh.mesh_dim_names}")
+        sharding = batch_sharding(mesh, "dp")
+        owned = range(*sharding.bounds(len(image_jobs)))
     dit, vae, cond = models
     if j_regressor is None:
         j_regressor = load_mano(device="cpu").j_regressor.numpy()
 
     cameras, targets, conds, unconds, generators, debugs = [], [], [], [], [], []
-    for job in image_jobs:
-        hand_mask = _load_mask(job["cropped_hand_mask_path"])
-        obj_mask = _load_mask(job["cropped_obj_mask_path"])
-        H, W = hand_mask.shape
-        camera = GuidanceCamera(height=H, width=W, fov_deg=float(job["fovx"]))
-        cameras.append(camera)
-        targets.append(build_targets(
-            camera, job["aligned_mano_mesh_path"], job["T_h2m_path"], job["moge_mesh_path"],
-            hand_mask, obj_mask, job["hamer_for_guid_path"], j_regressor, device=dev))
-        rgba = np.asarray(Image.open(job["cropped_obj_img_path"]).convert("RGBA"))
-        cond_main, uncond_main = encode_condition(cond, rgba, device=dev)
-        conds.append(cond_main)
-        unconds.append(uncond_main)
-        image_id = os.path.basename(job["cropped_obj_img_path"]).split("_")[0]
-        generators.append(stage_generator(SEED_GUIDANCE, "guidance", image_id, dev))
-        debugs.append(DebugDir(f"exp_obj{image_id}_inpainted"))
+    error = None
+    try:
+        for job in image_jobs:
+            hand_mask = _load_mask(job["cropped_hand_mask_path"])
+            obj_mask = _load_mask(job["cropped_obj_mask_path"])
+            H, W = hand_mask.shape
+            camera = GuidanceCamera(height=H, width=W, fov_deg=float(job["fovx"]))
+            cameras.append(camera)
+            targets.append(build_targets(
+                camera, job["aligned_mano_mesh_path"], job["T_h2m_path"], job["moge_mesh_path"],
+                hand_mask, obj_mask, job["hamer_for_guid_path"], j_regressor, device=dev))
+            rgba = np.asarray(Image.open(job["cropped_obj_img_path"]).convert("RGBA"))
+            cond_main, uncond_main = encode_condition(cond, rgba, device=dev)
+            conds.append(cond_main)
+            unconds.append(uncond_main)
+            image_id = os.path.basename(job["cropped_obj_img_path"]).split("_")[0]
+            generators.append(stage_generator(SEED_GUIDANCE, "guidance", image_id, dev))
+            debugs.append(DebugDir(f"exp_obj{image_id}_inpainted"))
+    except Exception as e:       # the mesh's other ranks learn of it before run_batch
+        error = e
+    if mesh is not None and not sharding.all_ok(error is None) and error is None:
+        raise RuntimeError("preparing the batch failed on another rank of the mesh")
+    if error is not None:
+        raise error
 
     # the crops share their size; each image's field of view rides in its targets
     sampler = GuidedSampler(dit=dit, vae=vae, camera=cameras[0], config=config,
                             scheduler_shift=scheduler_shift(), **guidance_mesh_caps())
     result = sampler.run_batch(torch.stack(conds), torch.stack(unconds), targets,
                                (vae.cfg.num_latents, vae.cfg.embed_dim), generators=generators,
-                               device=dev, debugs=debugs)
+                               device=dev, debugs=debugs, mesh=mesh)
 
     def export_one(b: int, job: dict):
         res = GuidanceResult(latents=result.latents[b], noise_pred=result.noise_pred[b],
@@ -266,9 +295,10 @@ def run_batch_images(image_jobs: Sequence[dict], config: OptimizationConfig, mod
                                  job["save_path_obj"], job["save_path_hand"], device=dev)
 
     try:
-        with ThreadPoolExecutor(max_workers=min(2, len(image_jobs))) as pool:
-            futures = [pool.submit(export_one, b, job) for b, job in enumerate(image_jobs)]
-            return [f.result() for f in futures]
+        with ThreadPoolExecutor(max_workers=min(2, len(owned))) as pool:
+            futures = {b: pool.submit(export_one, b, image_jobs[b]) for b in owned}
+            return [futures[b].result() if b in futures else None
+                    for b in range(len(image_jobs))]
     finally:
         for debug in debugs:
             debug.close()
@@ -362,6 +392,11 @@ def run(
     if batch_size > 1:
         _run_batched(assigned, batch_size, config, models, j_regressor, dirs, dev)
         return
+    world, rank = _world()
+    if world > 1:
+        # one image at a time: the ranks take the images in turn
+        assigned = assigned[rank::world]
+        print(f"rank {rank} of {world}: {len(assigned)} images, one at a time")
 
     pool = ThreadPoolExecutor(max_workers=1)
     prev = None        # (image_id, export future)
@@ -410,12 +445,44 @@ _NEEDED = ("cropped_hand_mask_path", "cropped_obj_mask_path", "moge_mesh_path", 
            "T_h2m_path", "aligned_mano_mesh_path", "hamer_for_guid_path")
 
 
+def _world() -> tuple:
+    """(world size, rank) of the process group, (1, 0) without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
 def _run_batched(assigned: Sequence[str], batch_size: int, config: OptimizationConfig, models,
                  j_regressor: Optional[np.ndarray], dirs: Sequence[str],
                  device: DeviceLike = "cuda") -> None:
     """The runnable images (outputs missing, every input present, masks not
     empty) through ``run_batch_images`` in batches of ``batch_size``; a
-    failing batch is reported with its traceback and the next one runs."""
+    failing batch is reported with its traceback and the next one runs.
+
+    In a process group every rank walks the same batches: a batch runs on a
+    dp mesh of the first dp ranks (``_mesh_for``), or on rank 0 alone where
+    dp would be 1; the other ranks skip it."""
+    dev = resolve_device(device)
+    world, rank = _world()
+    meshes: dict = {}
+
+    def _mesh_for(n_images: int):
+        # dp divides the batch, so that each rank of the mesh holds as many
+        # images; a short last batch gets a smaller mesh
+        if world <= 1:
+            return None
+        from followmyhold_tpu_torch.parallel.mesh import make_mesh
+
+        dp = min(world, n_images)
+        while n_images % dp:
+            dp -= 1
+        if dp == 1:
+            return None
+        if dp not in meshes:     # every rank makes it, in the same order
+            meshes[dp] = make_mesh(f"dp={dp}", ranks=range(dp), device_type=dev.type,
+                                   backend=dist.get_backend())
+        return meshes[dp]
+
     pending = []
     for name in assigned:
         job = _job_paths(name, *dirs)
@@ -435,8 +502,12 @@ def _run_batched(assigned: Sequence[str], batch_size: int, config: OptimizationC
         batch = pending[i:i + batch_size]
         ids = [job["image_id"] for job in batch]
         try:
-            print("Batch:", ids)
-            run_batch_images(batch, config, models, j_regressor, device=device)
+            mesh = _mesh_for(len(batch))
+            if (rank >= mesh.size()) if mesh is not None else rank > 0:
+                continue         # the batch runs on other ranks
+            print("Batch:", ids, "" if world == 1 else
+                  f"(rank {rank}, dp={1 if mesh is None else mesh.size()})")
+            run_batch_images(batch, config, models, j_regressor, device=dev, mesh=mesh)
         except Exception as e:
             print(f"Error in batch {ids}: {e}")
             traceback.print_exception(type(e), e, e.__traceback__)
@@ -461,10 +532,38 @@ def main() -> None:
                         help="images per sampler run")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args()
-    run(args.project_root, args.cropped_obj_img_dir, args.mask_dir, args.moge_out_dir,
-        args.hunyuan_hoi_mesh_dir, args.hamer_out_dir, args.h2m_rt_dir, args.aligned_mano_dir,
-        args.guidance_out_dir, args.task_list_file, args.shard_index, args.shard_count,
-        args.batch_size, device=args.device)
+    device = _launch(args.device, args.batch_size)
+    try:
+        run(args.project_root, args.cropped_obj_img_dir, args.mask_dir, args.moge_out_dir,
+            args.hunyuan_hoi_mesh_dir, args.hamer_out_dir, args.h2m_rt_dir,
+            args.aligned_mano_dir, args.guidance_out_dir, args.task_list_file,
+            args.shard_index, args.shard_count, args.batch_size, device=device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _launch(device: str, batch_size: int) -> torch.device:
+    """This process's device. Under ``torchrun`` (WORLD_SIZE > 1) it joins
+    the process group (NCCL for a card, gloo for the CPU, as the device asks)
+    and binds the card of its local rank; alone it runs on ``device``, and
+    says once how to run on every visible card."""
+    dev = resolve_device(device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        dist.init_process_group(backend=backend)
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                                  % torch.cuda.device_count())
+            dev = torch.device("cuda", torch.cuda.current_device())
+        print(f"rank {dist.get_rank()} of {world} on {dev} ({backend})")
+    elif dev.type == "cuda" and torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+        print(f"{n} cards are visible and this process runs on {dev} alone; to run on all "
+              f"of them: torchrun --nproc_per_node={n} -m followmyhold_tpu_torch.guidance.run "
+              f"... --batch_size {max(batch_size, n)}")
+    return dev
 
 
 if __name__ == "__main__":

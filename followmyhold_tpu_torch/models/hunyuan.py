@@ -368,6 +368,7 @@ class GeoDecoder(nn.Module):
         super().__init__()
         self.cfg = c = cfg
         n_embed = 3 * (2 * c.fourier_freqs + 1)
+        self.heads = c.geo_heads          # this rank's heads under tensor parallelism
         self.query_in = _linear(n_embed, c.width, c.dtype, device)
         self.lnq = LayerNormF32(c.width, True, c.dtype, device)
         self.kv = _linear(c.width, 2 * c.width, c.dtype, device)
@@ -391,8 +392,8 @@ class GeoDecoder(nn.Module):
         c = self.cfg
         q = self.query_in(fourier_embed(queries, c.fourier_freqs).to(c.dtype))
         k, v = kv.chunk(2, dim=-1)
-        qh = _split_heads(self.q(self.lnq(q)), c.geo_heads)
-        attn = _attention(qh, _split_heads(k, c.geo_heads), _split_heads(v, c.geo_heads))
+        qh = _split_heads(self.q(self.lnq(q)), self.heads)
+        attn = _attention(qh, _split_heads(k, self.heads), _split_heads(v, self.heads))
         return q, _merge_heads(attn)
 
     def query_tail(self, q: torch.Tensor, attn_merged: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,18 @@ from followmyhold_tpu_torch.models import hunyuan as TH
 from followmyhold_tpu_torch.ops.surface import marching_tets
 from followmyhold_tpu_torch.utils.params import flax_to_torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module on one torch thread: the port's small ops spin a thread
+    pool for nothing, and in a six-worker run of the suite that CPU time is
+    what the file costs."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BOX = 1.1
 
 

@@ -42,6 +42,18 @@ from followmyhold_tpu_torch.models import hunyuan as TH
 from followmyhold_tpu_torch.ops.camera import GuidanceCamera as TCamera
 from followmyhold_tpu_torch.utils.params import flax_to_torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module on one torch thread: the port's small ops spin a thread
+    pool for nothing, and in a six-worker run of the suite that CPU time is
+    what the file costs."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SIZE = 128   # a multiple of the reference's 128x128 kernel tile, or it renders through XLA
 N_STEPS = 6
 N_HAND = 3

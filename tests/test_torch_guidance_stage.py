@@ -55,6 +55,18 @@ from followmyhold_tpu_torch.utils import mesh_io as TIO
 from followmyhold_tpu_torch.utils.params import flax_to_torch
 from followmyhold_tpu_torch.utils.prng import stage_generator
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The module on one torch thread: the port's small ops spin a thread
+    pool for nothing, and in a six-worker run of the suite that CPU time is
+    what the file costs."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SIZE = 64
 IMAGE = "000001"
 

@@ -37,6 +37,7 @@ def test_port_has_sources():
     for name in ("common", "vit_torch", "hunyuan", "moge", "hamer", "vitpose", "flux",
                  "flux_text", "yolov8", "hand_object", "gdino", "sam2"):
         assert f"followmyhold_tpu_torch/convert/{name}.py" in names, name
+    assert "followmyhold_tpu_torch/parallel/mesh.py" in names
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.relative_to(ROOT).as_posix())
