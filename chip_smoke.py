@@ -12,7 +12,8 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             host library (followmyhold_tpu_torch/native, g++).
 3. kernels  call every kernel's wrapper at the shapes the main path gives it
             and hold the result against its plain PyTorch version on the same
-            inputs; time kernel, plain version and, for attention, PyTorch's
+            inputs (K3 and K4 also on two object images in one launch, each image
+            against its own launch bit for bit); time kernel, plain version and, for attention, PyTorch's
             scaled_dot_product_attention as a yardstick (the port never calls it).
             Also the deterministic scatter-add behind every gather's gradient
             (ops/indexing.scatter_rows_add): no host sync, same bits in two
@@ -122,10 +123,14 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             and read just after; it prints s per image split by part.
 8. batch    the guidance stage on two images in one batch: guidance/run.run with
             batch_size=2 over two scenes at 50 and 70 degrees, with the same models
-            and the default config (GuidedSampler.run_batch: the DiT at batch 4, the
-            phases image by image; the exports two at once), with its own launch
-            counts; checks all four PLYs, that the two poses differ, and each
-            image's batched DiT prediction against its batch-2 one.
+            and the default config (GuidedSampler.run_batch: the DiT at batch 4, each
+            phase once for both images, K3 and K4 over both images' tiles in one
+            launch; the exports two at once), with its own launch counts and peak
+            memory; s per image beside phase 7's one image, and per iteration of each
+            phase, batched and for one image: wall ms, host syncs, device launches and
+            device ms (see run_batched_stage); checks all four PLYs, that the two
+            poses differ, each image's batched DiT prediction against its batch-2
+            one, and each image of a reduced run_batch against its own run.
 9. pipeline the whole pipeline from one photo, as a user of the server runs it: POST
             /reconstruct of tools._scene.hoi_photo (1280x960, a hand holding a striped box)
             to serve.py's server, whose main.run_pipeline runs from its own env file in a
@@ -495,12 +500,13 @@ def check_flash_attention_backward(dev) -> dict:
                 bound_ms_without_dq=head["bound_ms_without_dq"], shapes=per_shape)
 
 
-def _tile_inputs(camera, verts, faces, faces_per_tile):
-    """The packed tile inputs (TileInputs) that rasterize() hands to the kernels."""
+def _tile_inputs(camera, verts, faces, faces_per_tile, fov_deg=None):
+    """The packed tile inputs (TileInputs) that rasterize() hands to the kernels,
+    of one image (verts [V,3]) or of a batch (verts [B,V,3], fov_deg [B])."""
     from followmyhold_tpu_torch.ops.rasterizer import bin_and_pack
 
-    return bin_and_pack(camera, verts, faces, torch.ones(faces.shape[0], device=verts.device),
-                        0.7, faces_per_tile)
+    mask = torch.ones((*verts.shape[:-2], faces.shape[-2]), device=verts.device)
+    return bin_and_pack(camera, verts, faces, mask, 0.7, faces_per_tile, fov_deg=fov_deg)
 
 
 def _raster_pairs(geom, tile_start, meta) -> tuple:
@@ -510,6 +516,7 @@ def _raster_pairs(geom, tile_start, meta) -> tuple:
     counts = (tile_start[1:] - tile_start[:-1]).long()
     T = counts.numel()
     tile_of = torch.repeat_interleave(torch.arange(T, device=geom.device), counts)
+    tile_of = tile_of % meta.tiles_per_image          # the tile within its image
     x, y = geom[[0, 3, 6]], geom[[1, 4, 7]]
     area = (x[1] - x[0]) * (y[2] - y[0]) - (y[1] - y[0]) * (x[2] - x[0])
     x0 = ((tile_of % meta.tiles_x) * 16).float()
@@ -611,7 +618,7 @@ def _check_raster_shape(R, tag, packed, gen, plain_iters: int = 2) -> tuple:
     bwd_all, _ = _raster_bound(tile_start, pairs, _RASTER_BWD_OPS, 72, 20)
     counts = (tile_start[1:] - tile_start[:-1]).long()
     plan = _check_chunk_plan(R, tag, tile_start, geom.shape[1])
-    common = dict(faces=int(packed.tri.shape[0]), columns=int(geom.shape[1]),
+    common = dict(faces=int(packed.tri[..., 0, 0].numel()), columns=int(geom.shape[1]),
                   longest_list=int(counts.max().item()), chunks=plan["chunks"],
                   pixel_face_pairs=pairs, pairs_after_cull=near)
     fwd = dict(common, ms=fwd_ms, graph_ms=fwd_t["graph_ms"], plain_ms=plain_fwd_ms,
@@ -620,7 +627,8 @@ def _check_raster_shape(R, tag, packed, gen, plain_iters: int = 2) -> tuple:
                bound_ms=bwd_bound, bound_by=bwd_by,
                bound_ms_all_pairs=bwd_all, max_abs_err=err_b, max_abs_ref=ref_max,
                loose_share=loose_b)
-    say(f"kernel raster_fwd {tag} 512^2 F={common['faces']} P={geom.shape[1]} (longest list "
+    say(f"kernel raster_fwd {tag} 512^2 F={common['faces']} P={geom.shape[1]} "
+        f"T={tile_start.numel() - 1} (longest list "
         f"{common['longest_list']}, {plan['chunks']} chunks of {R.RASTER_CHUNK}) against the "
         f"plain version (every pair): slots differ on {cmp['slot_mismatch_pixels']} pixels, w by "
         f"{cmp['w_err']:.3e} where they agree, vis by {cmp['vis_err']:.3e} (beyond 1e-6 on "
@@ -677,6 +685,42 @@ def _compare_forward(tag, got, ref) -> dict:
             "vis_pixels_beyond_1e-6": int((dvis > 1e-6).sum().item())}
 
 
+def _check_raster_batch(R, camera, verts, faces, fovs, gen, faces_per_tile) -> tuple:
+    """K3 and K4 (with the plan and the merge) on B images in one launch, as the
+    batched phases render them: held against the plain version as at any shape
+    (_check_raster_shape), and each image's slice of the outputs and of dgeom
+    against that image's own launches, bit for bit (each tile's work and each
+    dgeom column's one writer are the same; only the tile's index within its
+    image places it)."""
+    packed = _tile_inputs(camera, verts, faces, faces_per_tile, fov_deg=fovs)
+    B, T = verts.shape[0], packed.meta.tiles_per_image
+    tag = f"object x{B}"
+    fwd, bwd, plan, got = _check_raster_shape(R, tag, packed, gen)
+    grads = [torch.randn(got[0].shape, generator=gen, device=verts.device) for _ in range(3)]
+    dgeom = R.raster_tiles_backward(packed.geom, packed.tile_start, got[2], got[3], *grads,
+                                    packed.meta)
+    torch.cuda.synchronize()
+    for b in range(B):
+        one = _tile_inputs(camera, verts[b], faces, faces_per_tile, fov_deg=fovs[b])
+        rows = slice(b * T, (b + 1) * T)
+        lo, hi = int(packed.tile_start[b * T]), int(packed.tile_start[(b + 1) * T])
+        if not torch.equal(packed.geom[:, lo:hi], one.geom):
+            fail(f"raster {tag}: image {b}'s packed geometry differs from its own binning")
+        alone = R.raster_tiles_forward(one.geom, one.tile_start, one.meta)
+        if not all(torch.equal(x[rows], y) for x, y in zip(got, alone)):
+            fail(f"raster forward {tag}: image {b} differs from its own launch")
+        d_one = R.raster_tiles_backward(one.geom, one.tile_start, alone[2], alone[3],
+                                        *(g[rows] for g in grads), one.meta)
+        torch.cuda.synchronize()
+        if not torch.equal(dgeom[:, lo:hi], d_one):
+            fail(f"raster backward {tag}: image {b}'s dgeom differs from its own launch")
+    say(f"kernel raster {tag}: each image's w1, w2, slot, vis and dgeom columns equal its own "
+        f"launch's bit for bit (bin_max {packed.bin_max} of {faces_per_tile})")
+    for entry in (fwd, bwd):
+        entry.update(images=B, bin_max=packed.bin_max, same_bits_as_each_image=True)
+    return fwd, bwd
+
+
 def check_scatter(dev, R, packed, slot, sphere) -> dict:
     """The deterministic row scatter-add (csrc/scatter_rows.cu behind
     ops/indexing.scatter_rows_add), the backward of every take_rows, held
@@ -730,19 +774,21 @@ def check_scatter(dev, R, packed, slot, sphere) -> dict:
             fail(f"scatter_rows_add {label}: differs from the float64 sum beyond 1e-5 of the "
                  f"row sums (max |diff| {err})")
         t = time_call(lambda: I.scatter_rows_add_forward(n_rows, index, src))
-        lib = time_call(lambda: I.scatter_rows_add_plain(n_rows, index, src))
+        plain = time_call(lambda: I.scatter_rows_add_plain(n_rows, index, src))
+        lib = time_call(lambda: torch.zeros((n_rows, cols), device=dev).index_add_(0, index, src))
         longest = int(torch.bincount(index, minlength=n_rows).max().item())
         nbytes = index.numel() * (8.0 + 4.0 * cols) + n_rows * 4.0 * cols
         t_bytes, t_ops = nbytes / _HBM_BYTES * 1e3, index.numel() * cols / _F32_FLOPS * 1e3
         per_shape.append(dict(shape=label, rows=index.numel(), n_rows=n_rows, cols=cols,
                               longest_run=longest, max_abs_err=err, ms=t["eager_ms"],
-                              graph_ms=t["graph_ms"], plain_ms=lib["eager_ms"],
+                              graph_ms=t["graph_ms"], plain_ms=plain["eager_ms"],
                               library_ms=lib["eager_ms"], library_graph_ms=lib["graph_ms"],
                               bound_ms=max(t_bytes, t_ops),
                               bound_by="bytes" if t_bytes >= t_ops else "operations"))
         say(f"kernel scatter_rows_add {label} {index.numel()} rows -> {n_rows} x {cols} (longest "
             f"run {longest}): max |diff| to float64 {err:.3e}; same bits in two calls, no host "
-            f"sync; kernel {t['eager_ms']:.4f} ms (graph replay {t['graph_ms']:.4f}), atomic "
+            f"sync; kernel {t['eager_ms']:.4f} ms (graph replay {t['graph_ms']:.4f}), plain "
+            f"(float64) {plain['eager_ms']:.4f} ms, atomic "
             f"index_add_ {lib['eager_ms']:.4f} ms (graph replay {lib['graph_ms']:.4f}); bound "
             f"{max(t_bytes, t_ops):.4f} ms")
     head = per_shape[0]
@@ -814,6 +860,15 @@ def check_rasterizer(dev) -> list:
     bin_ms = cuda_ms(lambda: _tile_inputs(camera, obj_verts, sphere.faces[:nf], 24576), 1, 5)
     fwd_o["bin_and_pack_ms"] = bin_ms
     say(f"raster object 512^2: projecting, binning and packing it (torch ops) {bin_ms:.3f} ms")
+    # the batched phases' render: the object in two images (the batched stage's two
+    # fields of view, the second image's sphere moved) in one launch
+    obj_b = torch.stack([obj_verts, obj_verts + torch.tensor([0.03, -0.02, 0.05], device=dev)])
+    fovs = torch.tensor(BATCH_FOVS, device=dev)
+    fwd_b, bwd_b = _check_raster_batch(R, camera, obj_b, sphere.faces[:nf], fovs, gen, 24576)
+    bin_ms_b = cuda_ms(lambda: _tile_inputs(camera, obj_b, sphere.faces[:nf], 24576, fovs), 1, 5)
+    fwd_b["bin_and_pack_ms"] = bin_ms_b
+    say(f"raster object x2 512^2: projecting, binning and packing both (torch ops) "
+        f"{bin_ms_b:.3f} ms")
     scatter = check_scatter(dev, R, packed, got_h[2], sphere)
     del packed_o
 
@@ -842,19 +897,22 @@ def check_rasterizer(dev) -> list:
         return dict(name=name, route="cuda", source=f"followmyhold_tpu_torch/csrc/{src}",
                     replaces=f"followmyhold_tpu/ops/rasterizer.py:{line}",
                     max_abs_err=max(hand["max_abs_err"], obj["max_abs_err"],
-                                    extra.get("moge_mesh", {}).get("max_abs_err", 0.0)),
+                                    extra.get("moge_mesh", {}).get("max_abs_err", 0.0),
+                                    extra.get("object_mesh_batched", {}).get("max_abs_err", 0.0)),
                     ms=hand["ms"],
                     graph_ms=hand["graph_ms"], plain_ms=hand["plain_ms"],
                     bound_ms=hand["bound_ms"], bound_by=hand["bound_by"], library_ms=None,
                     chunk=R.RASTER_CHUNK, hand_mesh=hand, object_mesh=obj, **extra)
 
     fwd = entry("raster_fwd", "raster_fwd.cu", 506, fwd_h, fwd_o, moge_mesh=fwd_m,
+                object_mesh_batched=fwd_b,
                 pixel_face_pairs=fwd_h["pixel_face_pairs"],
                 pairs_after_cull=fwd_h["pairs_after_cull"],
                 bound_ms_all_pairs=fwd_h["bound_ms_all_pairs"],
                 slot_mismatch=max(fwd_h["slot_mismatch"], fwd_o["slot_mismatch"],
                                   fwd_m["slot_mismatch"]))
     bwd = entry("raster_bwd", "raster_bwd.cu", 530, bwd_h, bwd_o, moge_mesh=bwd_m,
+                object_mesh_batched=bwd_b,
                 pixel_face_pairs=bwd_h["pixel_face_pairs"],
                 pairs_after_cull=bwd_h["pairs_after_cull"],
                 bound_ms_all_pairs=bwd_h["bound_ms_all_pairs"], vertex_grad_err=err_gv)
@@ -3314,7 +3372,7 @@ def run_stage(dev) -> dict:
         fail(f"scatter_rows_add launched {launches['scatter_rows_add']} times, expected at "
              f"least {2 * (want_raster - 1)}")
     shutil.rmtree(root, ignore_errors=True)
-    batched = run_batched_stage(dev, (dit, vae, cond))
+    batched = run_batched_stage(dev, (dit, vae, cond), one_image_s=stage_s)
     return dict(launches=launches, hoi=hoi, batched=batched, models=(dit, vae, cond))
 
 
@@ -3330,22 +3388,126 @@ BATCH_FOVS = (50.0, 70.0)
 _BATCH_REL_LIMIT = 2.0 ** -5
 
 
-def run_batched_stage(dev, models) -> dict:
+# each image of a reduced batched run (_TWO_RUN_CONFIG) against that image's own
+# GuidedSampler.run on the same initial noise, at the CPU test's tolerance
+# (tests/test_torch_guidance_batch.py: the DiT and the phases at another batch size
+# may sum in another order, which the optimizers amplify): 1e-3 on the latents, the
+# noise prediction and the poses, 1e-3 relative on the loss curves
+_BATCH_RUN_ATOL = 1e-3
+_BATCH_RUN_RTOL = 1e-3
+
+
+def _phase_runner(sampler, phase: str, iters: int, state: dict):
+    """A closure that runs one phase of ``sampler`` (its config's counts set to
+    ``iters``) on ``state``'s batch: poses, noise, latents, stacked targets."""
+    config = dataclasses.replace(sampler.config, optimization_steps_hand=iters,
+                                 optimization_steps_scale=iters, optimization_steps_joint=iters)
+    s = dataclasses.replace(sampler, config=config)
+    sched = s._schedule(config.num_inference_steps)
+    i_obj = config.handopt_start_step + 1
+    if phase == "hand":
+        return lambda: s._hand_phase_batch(state["hand"], state["targets"])
+    if phase == "obj":
+        return lambda: s._obj_phase_batch(state["obj"], state["noise"], state["latents"],
+                                          state["targets"], sched, i_obj)
+    return lambda: s._joint_phase_batch(state["hand"], state["obj"], state["noise"],
+                                        state["latents"], state["targets"], sched, i_obj + 1,
+                                        near_end=False)
+
+
+def _per_iteration(sampler, phase: str, state: dict) -> dict:
+    """One phase's cost per iteration on ``state``'s batch, each number the
+    difference of a 5-iteration and a 1-iteration run over 4 (the phase's set-up
+    cancels): wall ms, host syncs, device launches and device ms (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = {k: _phase_runner(sampler, phase, k, state) for k in (1, 5)}
+    runs[1]()                                      # first calls
+    wall, syncs, launches, device = {}, {}, {}, {}
+    for k, run in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall[k] = (time.perf_counter() - t0) * 1e3
+        syncs[k] = _count_syncs(run)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        launches[k] = sum(e.count for e in kern)
+        device[k] = sum(e.self_device_time_total for e in kern) / 1e3
+    return {name: (x[5] - x[1]) / 4 for name, x in (("wall_ms", wall), ("syncs", syncs),
+                                                     ("launches", launches),
+                                                     ("device_ms", device))}
+
+
+def _check_batch_against_run(dev, sampler, targets, cond_main, uncond_main) -> dict:
+    """Each image of a reduced run_batch (_TWO_RUN_CONFIG, every phase) against
+    that image's own run on the same initial noise (_BATCH_RUN_ATOL/RTOL)."""
+    from followmyhold_tpu_torch.configs.guidance import OptimizationConfig
+
+    s = dataclasses.replace(sampler, config=OptimizationConfig(**_TWO_RUN_CONFIG))
+    shape = (s.vae.cfg.num_latents, s.vae.cfg.embed_dim)
+    noise = torch.randn((len(targets), 1, *shape),
+                        generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    t0 = time.perf_counter()
+    both = s.run_batch(cond_main, uncond_main, targets, shape, initial_noise=noise, device=dev)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    diffs, same, one_s = [], True, []
+    for b, tg in enumerate(targets):
+        t0 = time.perf_counter()
+        one = s.run(cond_main[b], uncond_main[b], tg, shape, initial_noise=noise[b], device=dev)
+        torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - t0)
+        leaves = [("latents", both.latents[b], one.latents),
+                  ("noise_pred", both.noise_pred[b], one.noise_pred),
+                  *((f"{name}.{f}", getattr(getattr(both, name), f)[b],
+                     getattr(getattr(one, name), f))
+                    for name in ("hand", "obj") for f in ("scale", "trans", "quat"))]
+        d = {k: (x - y).abs().max().item() for k, x, y in leaves}
+        d.update({f"loss {tag}": ((both.losses[tag][b] - c).abs()
+                                  / c.abs().clamp(min=1e-12)).max().item()
+                  for tag, c in one.losses.items()})
+        same = same and all(torch.equal(x, y) for _, x, y in leaves) and all(
+            torch.equal(both.losses[tag][b], c) for tag, c in one.losses.items())
+        bad = {k: v for k, v in d.items()
+               if not (math.isfinite(v) and v <= (_BATCH_RUN_RTOL if k.startswith("loss")
+                                                   else _BATCH_RUN_ATOL))}
+        if bad:
+            fail(f"batch: image {b} of a reduced run_batch differs from its own run: {bad}")
+        diffs.append(max(d.values()))
+    say(f"batch: a reduced run_batch ({_TWO_RUN_CONFIG}) against each image's run on the "
+        f"same noise: largest difference {[f'{x:.2e}' for x in diffs]} (limits "
+        f"{_BATCH_RUN_ATOL:.0e} absolute, {_BATCH_RUN_RTOL:.0e} relative on the losses); "
+        f"{'the same bits' if same else 'not the same bits'}; {batch_s:.2f} s for both, "
+        f"{', '.join(f'{x:.2f}' for x in one_s)} s one at a time")
+    return dict(max_diff=diffs, same_bits=same, batch_s=batch_s, one_s=one_s)
+
+
+def run_batched_stage(dev, models, one_image_s: float = None) -> dict:
     """The guidance stage on two images in one batch, as a user runs it:
     guidance/run.run(batch_size=2) over two write_stage_inputs scenes at 50 and
     70 degrees (each image's field of view in its own targets), with the main
     path's full-width models (run's build_models hands them over: the
     ShapeVAE's field is shaped, see _shape_field), the default
     OptimizationConfig and the 384^3 export. The DiT runs once a step for both
-    images (K1 at [4,16,4442,128]), the phases image by image, the exports in
-    a two-worker pool. The launch counts are set to 0 just before and read
-    just after. It prints s per image, the DiT step at batch 4 and ms per
-    iteration; it checks both images' PLYs, that the two optimized poses
-    differ, and each image's batched DiT prediction against its batch-2 one."""
+    images (K1 at [4,16,4442,128]) and each phase once a step for both (the
+    batched phases: one render, decode and marching tets an iteration), the
+    exports in a two-worker pool. The launch counts are set to 0 just before
+    and read just after. It prints s per image beside one image's stage in the
+    same call (``one_image_s``), the DiT step at batch 4, ms per image and
+    iteration, the peak memory, and then, for each phase of the batch and of
+    its first image alone on the stage's final state, per iteration: wall ms,
+    host syncs, device launches and device ms. It checks both images' PLYs,
+    that the two optimized poses differ, each image's batched DiT prediction
+    against its batch-2 one, and each image of a reduced run_batch against its
+    own run (_check_batch_against_run)."""
     import tempfile
 
     from followmyhold_tpu_torch.configs.profiles import crop_size, optimization_config
-    from followmyhold_tpu_torch.diffusion.guidance import GuidedSampler
+    from followmyhold_tpu_torch.diffusion.guidance import GuidedSampler, stack_targets
     from followmyhold_tpu_torch.diffusion.pipeline import cfg_noise_pred
     from followmyhold_tpu_torch.guidance import run as stage
     from followmyhold_tpu_torch.models.hunyuan import COND_FULL, DIT_FULL, VAE_FULL
@@ -3365,10 +3527,10 @@ def run_batched_stage(dev, models) -> dict:
     run_batch_orig, build_orig = GuidedSampler.run_batch, stage.build_models
     export_orig = stage._export_and_write
 
-    def run_batch(self, cond_main, uncond_main, *a, **k):
-        kept["cond"], kept["sampler"] = (cond_main, uncond_main), self
+    def run_batch(self, cond_main, uncond_main, targets, *a, **k):
+        kept["cond"], kept["sampler"], kept["targets"] = (cond_main, uncond_main), self, targets
         kept["result"] = _timed(run_batch_orig, calls, "sampler")(self, cond_main, uncond_main,
-                                                                    *a, **k)
+                                                                    targets, *a, **k)
         return kept["result"]
 
     GuidedSampler.run_batch = run_batch
@@ -3376,12 +3538,14 @@ def run_batched_stage(dev, models) -> dict:
     stage._export_and_write = _timed(export_orig, calls, "export")
     try:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         _kernels.reset_launch_counts()
         t0 = time.perf_counter()
         stage.run(root, *dirs, batch_size=2, device=dev)
         torch.cuda.synchronize()
         stage_s = time.perf_counter() - t0
         launches = _kernels.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     finally:
         GuidedSampler.run_batch, stage.build_models = run_batch_orig, build_orig
         stage._export_and_write = export_orig
@@ -3393,13 +3557,37 @@ def run_batched_stage(dev, models) -> dict:
     n_joint = config.optimization_steps_joint * (config.num_inference_steps
                                                  - config.handopt_start_step - 2)
     sec, dit_s = result.seconds, result.seconds["dit_steps"]
+    per_image = {"hand": sec["hand"] / (n * n_hand) * 1e3, "obj": sec["obj"] / (n * n_obj) * 1e3,
+                 "joint": sec["joint"] / (n * n_joint) * 1e3}
+    against = "" if one_image_s is None else f" (one image's stage in this call {one_image_s:.2f} s)"
     say(f"batch: guidance stage on {n} images in one batch ({dict(zip(BATCH_IDS, BATCH_FOVS))} "
-        f"degrees) {stage_s:.2f} s, {stage_s / n:.2f} s per image: sampler "
+        f"degrees) {stage_s:.2f} s, {stage_s / n:.2f} s per image{against}: sampler "
         f"{calls['sampler'][0]:.2f} s (DiT step at batch {2 * n} median "
         f"{float(np.median(dit_s)):.4f} s, first {dit_s[0]:.4f} s; hand "
-        f"{sec['hand'] / (n * n_hand) * 1e3:.2f}, object {sec['obj'] / (n * n_obj) * 1e3:.2f}, "
-        f"joint {sec['joint'] / (n * n_joint) * 1e3:.2f} ms per image and iteration); exports "
-        f"(two at once) {', '.join(f'{x:.2f}' for x in calls['export'])} s; launches {launches}")
+        f"{per_image['hand']:.2f}, object {per_image['obj']:.2f}, joint "
+        f"{per_image['joint']:.2f} ms per image and iteration, the phases batched); exports "
+        f"(two at once) {', '.join(f'{x:.2f}' for x in calls['export'])} s; peak memory "
+        f"{peak_gib:.2f} GiB; launches {launches}")
+
+    # ---- per iteration: the batch, and its first image alone ----------------- #
+    sampler = kept["sampler"]
+    targets = [t.to(dev) for t in kept["targets"]]
+    state = dict(targets=stack_targets(targets, sampler.camera), hand=result.hand,
+                 obj=result.obj, noise=result.noise_pred[:, 0], latents=result.latents[:, 0])
+    first = dict(targets=stack_targets(targets[:1], sampler.camera),
+                 hand=type(result.hand)(*(x[:1] for x in result.hand)),
+                 obj=type(result.obj)(*(x[:1] for x in result.obj)),
+                 noise=state["noise"][:1], latents=state["latents"][:1])
+    iteration = {}
+    for phase in ("hand", "obj", "joint"):
+        iteration[phase] = {"batch": _per_iteration(sampler, phase, state),
+                            "one": _per_iteration(sampler, phase, first)}
+        b, o = iteration[phase]["batch"], iteration[phase]["one"]
+        say(f"batch: {phase} iteration, {n} images batched against one image: wall "
+            f"{b['wall_ms']:.2f} / {o['wall_ms']:.2f} ms ({b['wall_ms'] / n:.2f} ms per image), "
+            f"host syncs {b['syncs']:.1f} / {o['syncs']:.1f}, device launches "
+            f"{b['launches']:.0f} / {o['launches']:.0f}, device {b['device_ms']:.2f} / "
+            f"{o['device_ms']:.2f} ms")
 
     # ---- checks -------------------------------------------------------------- #
     for image_id in BATCH_IDS:
@@ -3410,7 +3598,10 @@ def run_batched_stage(dev, models) -> dict:
         obj_ply, hand_ply = load_mesh(paths[0]), load_mesh(paths[1])
         if not (obj_ply.num_faces > 0 and np.isfinite(obj_ply.vertices).all()
                 and hand_ply.num_vertices == 778 and np.isfinite(hand_ply.vertices).all()):
-            fail(f"{image_id}'s PLYs of the batched run are empty or not finite")
+            fail(f"{image_id}'s PLYs of the batched run are empty or not finite: object "
+                 f"{obj_ply.num_faces} faces, finite {np.isfinite(obj_ply.vertices).all()}; "
+                 f"hand {hand_ply.num_vertices} verts, finite "
+                 f"{np.isfinite(hand_ply.vertices).all()}")
         say(f"batch: wrote {image_id}_obj.ply ({obj_ply.num_faces} faces) and "
             f"{image_id}_hand.ply")
     for tag, curve in result.losses.items():
@@ -3434,16 +3625,19 @@ def run_batched_stage(dev, models) -> dict:
     say(f"batch: the two images' poses differ (hand by {moved['hand']:.4f}, object by "
         f"{moved['obj']:.4f}); each image's DiT prediction at batch {2 * n} against batch 2: "
         f"relative {[f'{r:.2e}' for r in rel]} (limit {_BATCH_REL_LIMIT:.2e})")
+    against_run = _check_batch_against_run(dev, sampler, targets, cond_main, uncond_main)
+    # the phases render, decode and query once an iteration for both images
     n_blocks = DIT_FULL.depth_double + DIT_FULL.depth_single
     want = {"flash_attention_fwd": n_blocks * config.num_inference_steps + n * COND_FULL.depth,
-            "flash_attention_bwd": n * VAE_FULL.depth * (n_obj + n_joint),
-            "raster_fwd": n * (n_hand + n_obj + 2 * n_joint + 1)}
+            "flash_attention_bwd": VAE_FULL.depth * (n_obj + n_joint),
+            "raster_fwd": n_hand + n_obj + 2 * n_joint + n}
     short = {k: (launches[k], v) for k, v in want.items() if launches[k] < v}
     if short:
         fail(f"the batched run launched kernels fewer times than it runs them: {short}")
     shutil.rmtree(root, ignore_errors=True)
     return dict(launches=launches, seconds=stage_s, sampler_seconds=sec, calls=calls,
-                dit_rel=rel)
+                dit_rel=rel, peak_gib=peak_gib, per_image_iteration_ms=per_image,
+                iteration=iteration, against_run=against_run)
 
 # the photo of the pipeline phase (tools._scene.hoi_photo) and its stage groups, in
 # run_pipeline's order: each group's stage modules, whose run() is timed

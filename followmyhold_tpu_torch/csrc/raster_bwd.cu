@@ -30,6 +30,10 @@
 //   have coverage 0 and no win, so they would add exact zeros.
 // - Every column is written, zeros for a face that no pixel reaches: the
 //   wrapper allocates dgeom uninitialised.
+// - Several images go in one launch, as in the forward: a tile's pixel
+//   origin comes from its index within its image, and each column still
+//   belongs to one tile of one image, so its one writer sums what the image's
+//   own launch sums, in the same order.
 
 #include "raster_common.cuh"
 
@@ -48,8 +52,8 @@ raster_bwd_chunk_kernel(const float* __restrict__ geom, const int* __restrict__ 
                         const int* __restrict__ chunk_start, const int* __restrict__ slot_in,
                         const float* __restrict__ vis_in, const float* __restrict__ gw1_in,
                         const float* __restrict__ gw2_in, const float* __restrict__ gvis_in,
-                        float* __restrict__ dgeom, int T, int P, int tiles_x, float csig,
-                        float reach) {
+                        float* __restrict__ dgeom, int T, int P, int tiles_x,
+                        int tiles_per_image, float csig, float reach) {
   __shared__ Face sf[kChunk];
   __shared__ int s_slot[kThreads];
   __shared__ float s_vis[kThreads], s_gw1[kThreads], s_gw2[kThreads], s_gvis[kThreads];
@@ -64,7 +68,8 @@ raster_bwd_chunk_kernel(const float* __restrict__ geom, const int* __restrict__ 
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int tile_x0 = (tile % tiles_x) * kTileW, tile_y0 = (tile / tiles_x) * kTileH;
+  const int local = tile % tiles_per_image;  // the tile's index within its image
+  const int tile_x0 = (local % tiles_x) * kTileW, tile_y0 = (local / tiles_x) * kTileH;
   const float fx0 = static_cast<float>(tile_x0), fy0 = static_cast<float>(tile_y0);
 
   if (tid < n) sf[tid] = load_face(geom, P, beg + tid, reach);
@@ -166,14 +171,16 @@ raster_bwd_chunk_kernel(const float* __restrict__ geom, const int* __restrict__ 
 
 // geom [9,P] f32, tile_start [T+1] i32, chunk_start [T+1] i32 (the forward's
 // chunk plan), slot i32 and vis, gw1, gw2, gvis f32 [T,16,16]; dgeom [9,P]
-// f32, every column written. n_grid >= chunk_start[T]; `chunk` must be
+// f32, every column written. The T tiles are T / tiles_per_image images' in
+// turn, as in fmh_raster_fwd. n_grid >= chunk_start[T]; `chunk` must be
 // kChunk. Returns cudaGetLastError() after the launch.
 extern "C" int fmh_raster_bwd(const void* geom, const void* tile_start, const void* chunk_start,
                               const void* slot, const void* vis, const void* gw1,
                               const void* gw2, const void* gvis, void* dgeom, int T, int P,
-                              int tiles_x, int n_grid, int chunk, float csig, float reach,
-                              void* stream) {
-  if (chunk != raster::kChunk || T < 1 || n_grid < T) {
+                              int tiles_x, int tiles_per_image, int n_grid, int chunk,
+                              float csig, float reach, void* stream) {
+  if (chunk != raster::kChunk || T < 1 || n_grid < T || tiles_per_image < 1 ||
+      T % tiles_per_image || tiles_per_image % tiles_x) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   raster_bwd_chunk_kernel<<<n_grid, raster::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -181,6 +188,6 @@ extern "C" int fmh_raster_bwd(const void* geom, const void* tile_start, const vo
       static_cast<const int*>(chunk_start), static_cast<const int*>(slot),
       static_cast<const float*>(vis), static_cast<const float*>(gw1),
       static_cast<const float*>(gw2), static_cast<const float*>(gvis),
-      static_cast<float*>(dgeom), T, P, tiles_x, csig, reach);
+      static_cast<float*>(dgeom), T, P, tiles_x, tiles_per_image, csig, reach);
   return static_cast<int>(cudaGetLastError());
 }

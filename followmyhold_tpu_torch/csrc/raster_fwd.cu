@@ -15,6 +15,12 @@
 // What the design does about it.
 // - A tile is 16x16 pixels, one thread a pixel. A tile's faces are packed
 //   contiguously (`tile_start[T+1]` into `geom[9, P]`).
+// - Several images go in one launch: their tile lists join image-major, each
+//   image's `tiles_per_image` tiles after the last one's, over their geometry
+//   concatenated. A tile finds its pixel origin from its index within its
+//   image, so each image's outputs are those of its launch alone, bit for bit.
+//   The plan and the merge read no pixel position: they run over the joined
+//   list as over one image's, a plan's chunk numbers running on across images.
 // - The unit of work is a chunk of at most kChunk consecutive slots of one
 //   tile's list (`chunk_start`, the plan that `chunk_plan_kernel` below builds
 //   on the device, as ops/rasterizer.py raster_chunk_plan_plain states it),
@@ -47,8 +53,8 @@ raster_fwd_chunk_kernel(const float* __restrict__ geom, const int* __restrict__ 
                         const int* __restrict__ chunk_start, float* __restrict__ w1_out,
                         float* __restrict__ w2_out, int* __restrict__ slot_out,
                         float* __restrict__ vis_out, float* __restrict__ scratch, int T, int P,
-                        int tiles_x, int n_grid, float csig, float reach, float znear,
-                        float zfar) {
+                        int tiles_x, int tiles_per_image, int n_grid, float csig, float reach,
+                        float znear, float zfar) {
   __shared__ Face sf[kChunk];
 
   const int b = blockIdx.x;
@@ -65,8 +71,9 @@ raster_fwd_chunk_kernel(const float* __restrict__ geom, const int* __restrict__ 
   // (l % 8, l / 8)
   const int lx = (warp & 1) * kBlockW + (lane % kBlockW);
   const int ly = (warp >> 1) * kBlockH + (lane / kBlockW);
-  const float col_lo = static_cast<float>((tile % tiles_x) * kTileW + (warp & 1) * kBlockW);
-  const float row_lo = static_cast<float>((tile / tiles_x) * kTileH + (warp >> 1) * kBlockH);
+  const int local = tile % tiles_per_image;  // the tile's index within its image
+  const float col_lo = static_cast<float>((local % tiles_x) * kTileW + (warp & 1) * kBlockW);
+  const float row_lo = static_cast<float>((local / tiles_x) * kTileH + (warp >> 1) * kBlockH);
   const float col_hi = col_lo + static_cast<float>(kBlockW - 1);
   const float row_hi = row_lo + static_cast<float>(kBlockH - 1);
   const float uu = col_lo + static_cast<float>(lane % kBlockW);
@@ -209,13 +216,15 @@ extern "C" int fmh_raster_chunk_plan(const void* tile_start, void* chunk_start, 
 
 // geom [9,P] f32, tile_start [T+1] i32, chunk_start [T+1] i32 (the chunk
 // plan); w1, w2, vis f32 and slot i32 [T,16,16]; scratch f32 [5, n_grid, 256]
-// where n_grid >= chunk_start[T]. `chunk` must be kChunk. Launches the chunk
+// where n_grid >= chunk_start[T]. The T tiles are T / tiles_per_image images'
+// in turn, each tiles_x wide. `chunk` must be kChunk. Launches the chunk
 // kernel and the merge, returns cudaGetLastError() after them.
 extern "C" int fmh_raster_fwd(const void* geom, const void* tile_start, const void* chunk_start,
                               void* w1, void* w2, void* slot, void* vis, void* scratch, int T,
-                              int P, int tiles_x, int n_grid, int chunk, float csig, float reach,
-                              float znear, float zfar, void* stream) {
-  if (chunk != raster::kChunk || T < 1 || n_grid < T) {
+                              int P, int tiles_x, int tiles_per_image, int n_grid, int chunk,
+                              float csig, float reach, float znear, float zfar, void* stream) {
+  if (chunk != raster::kChunk || T < 1 || n_grid < T || tiles_per_image < 1 ||
+      T % tiles_per_image || tiles_per_image % tiles_x) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -223,7 +232,7 @@ extern "C" int fmh_raster_fwd(const void* geom, const void* tile_start, const vo
       static_cast<const float*>(geom), static_cast<const int*>(tile_start),
       static_cast<const int*>(chunk_start), static_cast<float*>(w1), static_cast<float*>(w2),
       static_cast<int*>(slot), static_cast<float*>(vis), static_cast<float*>(scratch), T, P,
-      tiles_x, n_grid, csig, reach, znear, zfar);
+      tiles_x, tiles_per_image, n_grid, csig, reach, znear, zfar);
   const cudaError_t first = cudaGetLastError();
   if (first != cudaSuccess) return static_cast<int>(first);
   raster_fwd_merge_kernel<<<T, raster::kThreads, 0, s>>>(

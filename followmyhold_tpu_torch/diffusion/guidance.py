@@ -32,7 +32,8 @@ decode (``models.hunyuan.hierarchical_export_logits``) and the host's exact
 marching tets (``ops.surface.marching_tets_host``). ``run`` takes a
 ``utils.debug.DebugDir`` for the reference's loss lines, render snapshots and
 mesh dumps. ``run_batch`` runs several images at once: one DiT evaluation a
-step for the whole batch, the optimization phases image by image.
+step for the whole batch, and each optimization phase once for the whole
+batch, over a leading image axis (``run`` is the same code on one image).
 
 Where the reference folds each optimizer loop into one compiled scan, this is a
 Python loop around ``torch.optim.Adam`` / ``torch.optim.AdamW`` (one parameter
@@ -44,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,7 +63,7 @@ from followmyhold_tpu_torch.models.hunyuan import (
     ShapeVAE,
     hierarchical_export_logits,
     vae_query_logits,
-    vae_query_logits_hier_grid,
+    vae_query_logits_hier_grid_batch,
 )
 from followmyhold_tpu_torch.models.mano import mano_vert_to_3dkps
 from followmyhold_tpu_torch.ops.camera import GuidanceCamera
@@ -71,6 +72,7 @@ from followmyhold_tpu_torch.ops.knn import nn_sqdist
 from followmyhold_tpu_torch.ops.losses import (
     attraction_loss,
     binary_cross_entropy,
+    image_means,
     masked_l1,
     mesh_edge_loss,
     mse,
@@ -115,6 +117,8 @@ class GuidanceTargets(NamedTuple):
 
 
 class PoseParams(NamedTuple):
+    """One image's pose; in the batched phases each leaf leads with B."""
+
     scale: torch.Tensor  # [1]
     trans: torch.Tensor  # [3]
     quat: torch.Tensor   # [4] wxyz
@@ -140,78 +144,110 @@ def init_pose(device: DeviceLike = "cuda") -> PoseParams:
     )
 
 
+def stack_poses(poses: Sequence[PoseParams]) -> PoseParams:
+    """B poses -> one whose leaves lead with B."""
+    return PoseParams(*(torch.stack(x) for x in zip(*poses)))
+
+
+def stack_targets(targets: Sequence[GuidanceTargets], camera: GuidanceCamera) -> GuidanceTargets:
+    """B images' targets -> one GuidanceTargets whose leaves lead with B. Each
+    image keeps its own field of view ([B]; the camera's where an image has
+    none), or fov_deg stays None where no image has one."""
+    fovs = [t.fov_deg for t in targets]
+    fov = None
+    if any(f is not None for f in fovs):
+        dev = targets[0].t_h2m.device
+        fov = torch.stack([torch.as_tensor(camera.fov_deg if f is None else f,
+                                           dtype=torch.float32, device=dev).reshape(())
+                           for f in fovs])
+    return GuidanceTargets(*(torch.stack(x) for x in zip(*(t[:-1] for t in targets))),
+                           fov_deg=fov)
+
+
 def _transform_hand(targets: GuidanceTargets, p: PoseParams) -> torch.Tensor:
     rt = rt_from_quat_trans(p.quat, p.trans)
-    return transform_around_center_w_scale(targets.mano_verts_moge, rt, p.scale[0])
+    return transform_around_center_w_scale(targets.mano_verts_moge, rt, p.scale[..., 0])
 
 
 def _hand_render_losses(verts, targets: GuidanceTargets, camera: GuidanceCamera,
                         raster_kw: dict, with_sil: bool):
+    """A batch's hand renders and the unreduced means of its losses, for the
+    caller's ``image_means`` (verts [B,778,3], targets stacked): (kps2d,
+    normal, disp, and sil where ``with_sil``), (n01, disp01, RasterOut)."""
+    B, V = verts.shape[:2]
     faces = targets.mano_faces
-    fmask = torch.ones(faces.shape[0], device=verts.device)
+    fmask = torch.ones(faces.shape[:2], device=verts.device)
     mesh = PaddedMesh(verts=verts, faces=faces,
-                      vert_mask=torch.ones(verts.shape[0], device=verts.device),
-                      face_mask=fmask)
+                      vert_mask=torch.ones((B, V), device=verts.device), face_mask=fmask)
     vn = vertex_normals(mesh)
     n01, disp01, out = render_normal_and_disparity(
         camera, verts, faces, vn, fmask, fov_deg=targets.fov_deg,
         device=verts.device, **raster_kw)
 
     kps3d = mano_vert_to_3dkps(verts, targets.j_regressor)
-    kps2d = camera.project(kps3d, fov_deg=targets.fov_deg)[:, :2]
+    kps2d = camera.project(kps3d, fov_deg=targets.fov_deg)[..., :2]
 
-    losses = {
-        "kps2d": mse(kps2d, targets.hamer_2d_kps),
-        "normal": normal_alignment_loss(n01, targets.moge_normal, targets.hand_mask),
-        "disp": masked_l1(disp01, targets.moge_disp, targets.hand_mask),
-        "trans_reg": torch.zeros((), device=verts.device),  # filled by the caller
-    }
+    losses = (mse(kps2d, targets.hamer_2d_kps),
+              normal_alignment_loss(n01, targets.moge_normal, targets.hand_mask),
+              masked_l1(disp01, targets.moge_disp, targets.hand_mask))
     if with_sil:
-        losses["sil"] = binary_cross_entropy(out.alpha, targets.hand_mask)
+        losses += (binary_cross_entropy(out.alpha, targets.hand_mask),)
     return losses, (n01, disp01, out)
 
 
-def _decode_object(vae: ShapeVAE, sched: FlowMatchSchedule, step_i: int,
-                   noise_pred: torch.Tensor, latents: torch.Tensor, xyz, bbox,
-                   octree_res: int, max_verts: int, max_faces: int, chunk: int,
-                   hier_cf: int = 0, hier_cap: int = 10240, remat: str = "full",
-                   hier_small_cap: Optional[int] = None):
-    """step_final -> SDF grid -> padded mesh (hunyuan space): (mesh, sdf,
-    capacity indicator), differentiable with respect to ``noise_pred``.
+def _decode_objects(vae: ShapeVAE, sched: FlowMatchSchedule, step_i: int,
+                    noise_pred: torch.Tensor, latents: torch.Tensor, xyz, bbox,
+                    octree_res: int, max_verts: int, max_faces: int, chunk: int,
+                    hier_cf: int = 0, hier_cap: int = 10240, remat: str = "full",
+                    hier_small_cap: Optional[int] = None):
+    """step_final -> SDF grids -> padded meshes (hunyuan space) of B images at
+    once (noise_pred, latents [B,L,E]): (mesh with leaves [B,...], sdf [B,
+    (res+1)^3], each image's capacity indicator), differentiable with respect
+    to ``noise_pred``. One decode and one marching tets for the batch; each
+    image's mesh is truncated at the capacities on its own.
 
     ``hier_cf > 1`` takes the two-level decode (exact wherever marching tets
     emits geometry, far fewer geo queries); ``hier_cf`` 0 or 1 the dense one,
     whose indicator is 0. An indicator above ``hier_cap`` means the two-level
     decode kept interpolated background in the cells it missed."""
     x1 = step_final(sched, step_i, noise_pred, latents)
+    B = x1.shape[0]
     if hier_cf > 1:
-        logits, n_sel = vae_query_logits_hier_grid(
+        logits, n_sel = vae_query_logits_hier_grid_batch(
             vae, x1, bbox[0], bbox[1], octree_res, chunk, coarse_factor=hier_cf,
             cell_cap=hier_cap, remat=remat, small_cell_cap=hier_small_cap)
-        logits = logits[0]
     else:
-        logits = vae_query_logits(vae, x1, xyz[None], chunk, remat=remat)[0]
-        n_sel = 0
+        logits = vae_query_logits(vae, x1, xyz[None].expand(B, -1, -1), chunk, remat=remat)
+        n_sel = [0] * B
     sdf = -logits  # inside < 0
     mesh = marching_tets(sdf, bbox[0], bbox[1], octree_res,
                          max_verts=max_verts, max_faces=max_faces)
     return mesh, sdf, n_sel
 
 
+def _decode_object(vae: ShapeVAE, sched: FlowMatchSchedule, step_i: int,
+                   noise_pred: torch.Tensor, latents: torch.Tensor, *args, **kwargs):
+    """``_decode_objects`` of one image (noise_pred, latents [1,L,E]): (mesh,
+    sdf [(res+1)^3], capacity indicator)."""
+    mesh, sdf, n_sel = _decode_objects(vae, sched, step_i, noise_pred, latents, *args,
+                                       **kwargs)
+    return PaddedMesh(*(x[0] for x in mesh)), sdf[0], n_sel[0]
+
+
 def _transform_object(mesh: PaddedMesh, targets: GuidanceTargets,
                       p: PoseParams) -> PaddedMesh:
     v = transform_points(mesh.verts, targets.t_h2m)      # hunyuan -> moge
     rt = rt_from_quat_trans(p.quat, p.trans)
-    v = transform_around_center_w_scale(v, rt, p.scale[0], mesh.vert_mask)
+    v = transform_around_center_w_scale(v, rt, p.scale[..., 0], mesh.vert_mask)
     return mesh._replace(verts=v)
 
 
 def _join_meshes(a_verts, a_faces, a_vmask, a_fmask, b: PaddedMesh) -> PaddedMesh:
     return PaddedMesh(
-        verts=torch.cat([a_verts, b.verts]),
-        faces=torch.cat([a_faces, b.faces + a_verts.shape[0]]),
-        vert_mask=torch.cat([a_vmask, b.vert_mask]),
-        face_mask=torch.cat([a_fmask, b.face_mask]),
+        verts=torch.cat([a_verts, b.verts], dim=-2),
+        faces=torch.cat([a_faces, b.faces + a_verts.shape[-2]], dim=-2),
+        vert_mask=torch.cat([a_vmask, b.vert_mask], dim=-1),
+        face_mask=torch.cat([a_fmask, b.face_mask], dim=-1),
     )
 
 
@@ -220,23 +256,24 @@ def _intersection_count(hand_verts, hand_faces, obj_hun: PaddedMesh, obj_verts_p
                         obj_pose: PoseParams, sample_res: int = 32) -> torch.Tensor:
     """Grid points inside both the hand and the object, / 1000; gradient-free
     (call with detached inputs). The grid spans the joint bbox of the hand and
-    the posed object.
+    the posed object. Of one image, or of each image of a batch ([B]; every
+    input leads with B).
 
     ``obj_hun`` is the pre-pose hunyuan-space mesh and ``obj_verts_posed`` the
     posed moge-space verts. The pose inverse pivots on the bbox center of the
     pre-pose moge verts, the center ``_transform_object`` used.
     """
     big = torch.finfo(torch.float32).max
-    om = obj_hun.vert_mask[:, None].bool()
+    om = obj_hun.vert_mask[..., None].bool()
 
     def masked_lo_hi(v):
-        return (torch.where(om, v, torch.full_like(v, big)).amin(dim=0),
-                torch.where(om, v, torch.full_like(v, -big)).amax(dim=0))
+        return (torch.where(om, v, torch.full_like(v, big)).amin(dim=-2),
+                torch.where(om, v, torch.full_like(v, -big)).amax(dim=-2))
 
     ov_lo, ov_hi = masked_lo_hi(obj_verts_posed)
-    lo = torch.minimum(hand_verts.amin(dim=0), ov_lo)
-    hi = torch.maximum(hand_verts.amax(dim=0), ov_hi)
-    pts = generate_grid(lo, hi, sample_res)                       # [P,3] moge space
+    lo = torch.minimum(hand_verts.amin(dim=-2), ov_lo)
+    hi = torch.maximum(hand_verts.amax(dim=-2), ov_hi)
+    pts = generate_grid(lo, hi, sample_res)                       # [(B,)P,3] moge space
 
     # hand occupancy: winding number against the hand mesh
     inside_hand = winding_number(pts, hand_verts, hand_faces) > 0.5
@@ -245,23 +282,24 @@ def _intersection_count(hand_verts, hand_faces, obj_hun: PaddedMesh, obj_verts_p
     # hunyuan-space SDF grid trilinearly
     rt = rt_from_quat_trans(obj_pose.quat, obj_pose.trans)
     m_lo, m_hi = masked_lo_hi(transform_points(obj_hun.verts, targets.t_h2m))
-    center = (m_lo + m_hi) / 2.0
+    center = ((m_lo + m_hi) / 2.0)[..., None, :]
     # p = s*R(q - c) + c + t  =>  q = R^T((p - c - t)/s) + c
-    q = (pts - center - obj_pose.trans) / obj_pose.scale[0].clamp(min=1e-6)
-    q = matmul_f32(q, rt[:3, :3]) + center
+    scale = obj_pose.scale[..., 0].clamp(min=1e-6)[..., None, None]
+    q = (pts - center - obj_pose.trans[..., None, :]) / scale
+    q = matmul_f32(q, rt[..., :3, :3]) + center
     q = transform_points(q, torch.linalg.inv(targets.t_h2m))     # moge -> hunyuan
 
     n = octree_res + 1
     lo_h, hi_h = xyz_bbox
     u = ((q - lo_h) / (hi_h - lo_h) * octree_res).clamp(0.0, octree_res - 1e-4)
-    grid = obj_sdf_grid.reshape(-1)
     i0 = torch.floor(u).long()
     f = u - i0
     fx, fy, fz = f.unbind(-1)
     gx, gy, gz = 1 - fx, 1 - fy, 1 - fz
 
     def g(dx, dy, dz):
-        return grid[((i0[:, 0] + dx) * n + i0[:, 1] + dy) * n + i0[:, 2] + dz]
+        return obj_sdf_grid.gather(
+            -1, ((i0[..., 0] + dx) * n + i0[..., 1] + dy) * n + i0[..., 2] + dz)
 
     sdf_obj = (
         g(0, 0, 0) * gx * gy * gz
@@ -273,25 +311,30 @@ def _intersection_count(hand_verts, hand_faces, obj_hun: PaddedMesh, obj_verts_p
         + g(0, 1, 1) * gx * fy * fz
         + g(1, 1, 1) * fx * fy * fz
     )
-    return torch.sum(inside_hand & (sdf_obj < 0)).float() / 1000.0
+    return torch.sum(inside_hand & (sdf_obj < 0), dim=-1).float() / 1000.0
 
 
-def _optimize(opt: torch.optim.Optimizer, steps: int, loss_step, dev: torch.device):
-    """``steps`` optimizer steps on ``loss_step() -> (total, indicators)``,
-    where a non-finite total contributes nothing. -> (loss curve [steps],
-    each capacity indicator's values over the steps)."""
+def _optimize(opt: torch.optim.Optimizer, steps: int, loss_step, n_images: int,
+              dev: torch.device):
+    """``steps`` optimizer steps on ``loss_step() -> (totals [B], indicators)``:
+    one step minimises the sum of the images' totals, where an image's
+    non-finite total contributes nothing. The optimizers here (Adam, AdamW)
+    are elementwise, so each image's leaves step as under an optimizer of its
+    own. -> (loss curves [B, steps], each image's capacity indicators' values
+    over the steps)."""
     losses = []
-    renders: Dict[str, list] = {}
+    renders: List[Dict[str, list]] = [{} for _ in range(n_images)]
     for _ in range(steps):
-        total, indicators = loss_step()
-        total = torch.where(torch.isfinite(total), total, torch.zeros_like(total))
+        totals, indicators = loss_step()
+        totals = torch.where(torch.isfinite(totals), totals, torch.zeros_like(totals))
         opt.zero_grad(set_to_none=True)
-        total.backward()
+        totals.sum().backward()
         opt.step()
-        losses.append(total.detach())
-        for name, value in indicators.items():
-            renders.setdefault(name, []).append(value)
-    curve = torch.stack(losses) if losses else torch.zeros(0, device=dev)
+        losses.append(totals.detach())
+        for image, ind in zip(renders, indicators):
+            for name, value in ind.items():
+                image.setdefault(name, []).append(value)
+    curve = torch.stack(losses, dim=1) if losses else torch.zeros((n_images, 0), device=dev)
     return curve, renders
 
 
@@ -300,17 +343,21 @@ _SNAPSHOT_STRIDE = 8   # 512^2 -> 64^2 render snapshots for the debug dumps
 _DIAG_CHANNELS = ("hier_cells", "raster_bins", "raster_cap")
 
 
-def _indicators(out, n_sel: Optional[int] = None, renders=None) -> dict:
-    """The capacity indicators of one iteration and, when ``renders`` =
-    (normal, disparity) is given (a debug run), their downsampled copies."""
-    ind = dict(raster_bins=out.bin_max, raster_cap=out.bin_capacity)
-    if n_sel is not None:
-        ind["hier_cells"] = n_sel
-    if renders is not None:
-        s = _SNAPSHOT_STRIDE
-        ind["normal"] = renders[0][::s, ::s].detach()
-        ind["disp"] = renders[1][::s, ::s].detach()
-    return ind
+def _indicators(out, n_sel: Optional[List[int]] = None, renders=None) -> List[dict]:
+    """Each image's capacity indicators of one iteration of a batch and, when
+    ``renders`` = (normal, disparity) is given (a debug run), their
+    downsampled copies."""
+    inds = []
+    for b, bins in enumerate(out.bin_max):
+        ind = dict(raster_bins=bins, raster_cap=out.bin_capacity)
+        if n_sel is not None:
+            ind["hier_cells"] = n_sel[b]
+        if renders is not None:
+            s = _SNAPSHOT_STRIDE
+            ind["normal"] = renders[0][b, ::s, ::s].detach()
+            ind["disp"] = renders[1][b, ::s, ::s].detach()
+        inds.append(ind)
+    return inds
 
 
 def _sync(dev: torch.device) -> None:
@@ -364,8 +411,8 @@ class GuidedSampler:
     # the reference's worst case measured on box-filling shapes with margin
     inloop_coarse_factor: int = 2
     inloop_cell_cap: int = 10240
-    # the reference's two-tier refine capacity; the refine set is sized
-    # exactly here, so it has no effect (see vae_query_logits_hier_grid)
+    # the reference's two-tier refine capacity; the refine set is sized to
+    # the batch here, so it has no effect (see vae_query_logits_hier_grid_batch)
     inloop_small_cap: Optional[int] = None
     # geo-query rematerialisation in the object/joint phases:
     # 'full' | 'tail' | 'none' (see models.hunyuan._geo_query_grouped)
@@ -416,17 +463,31 @@ class GuidedSampler:
                       f"the densest tile — overflow faces were DROPPED (wrong pixels and "
                       f"gradients there); raise raster_faces_per_tile")
 
+    def _warn_capacity_batch(self, tag: str, renders: List[dict]) -> None:
+        """``_warn_capacity`` of each image of a batched phase, named."""
+        for b, image in enumerate(renders):
+            self._warn_capacity(f"{tag} (batched), image {b}", image)
+
     def _decode(self, noise, latents, sched, step_i, xyz, bbox):
-        return _decode_object(
+        """The in-loop decode of B images (noise, latents [B,L,E])."""
+        return _decode_objects(
             self.vae, sched, step_i, noise, latents, xyz, bbox,
             self.config.octree_resolution, self.max_verts, self.max_faces, self.vae_chunk,
             self.inloop_coarse_factor, self.inloop_cell_cap, self.vae_remat,
             self.inloop_small_cap)
 
+    # The phases run over a leading image axis: PoseParams leaves [B,...],
+    # noise_pred and latents [B,L,E], targets stacked (stack_targets), one
+    # render, decode and marching tets a step for all images, each image's
+    # losses reduced on their own. -> leaves [B,...], loss curves [B, steps]
+    # and each image's indicators. ``_hand_phase``, ``_obj_phase`` and
+    # ``_joint_phase`` are their calls on one image.
+
     # phase 1: hand only ------------------------------------------------ #
 
-    def _hand_phase(self, hand: PoseParams, targets: GuidanceTargets, snapshot: bool = False
-                    ) -> Tuple[PoseParams, torch.Tensor, Dict[str, list]]:
+    def _hand_phase_batch(self, hand: PoseParams, targets: GuidanceTargets,
+                          snapshot: bool = False
+                          ) -> Tuple[PoseParams, torch.Tensor, List[Dict[str, list]]]:
         cfg = self.config
         lrs = cfg.phase1_hand_lrs
         scale, trans, quat = (x.detach().clone().requires_grad_(True) for x in hand)
@@ -441,23 +502,31 @@ class GuidedSampler:
             verts = _transform_hand(targets, PoseParams(scale, trans, quat))
             terms, (n01, disp01, out) = _hand_render_losses(
                 verts, targets, self.camera, self._hand_raster_kw(), with_sil=True)
+            kps2d, normal, disp, sil = image_means(*terms)
             total = (
-                1e-2 * terms["kps2d"]
-                + 1.0 * terms["normal"]
-                + 10.0 * terms["disp"]
-                + 1.0 * terms["sil"]
-                + 1e-2 * torch.mean(trans ** 2)
+                1e-2 * kps2d
+                + 1.0 * normal
+                + 10.0 * disp
+                + 1.0 * sil
+                + 1e-2 * torch.mean(trans ** 2, dim=-1)
             )
             return total, _indicators(out, renders=(n01, disp01) if snapshot else None)
 
-        curve, renders = _optimize(opt, cfg.optimization_steps_hand, loss_step, scale.device)
+        curve, renders = _optimize(opt, cfg.optimization_steps_hand, loss_step,
+                                   scale.shape[0], scale.device)
         return PoseParams(scale.detach(), trans.detach(), quat.detach()), curve, renders
+
+    def _hand_phase(self, hand: PoseParams, targets: GuidanceTargets, snapshot: bool = False
+                    ) -> Tuple[PoseParams, torch.Tensor, Dict[str, list]]:
+        hand, curve, renders = self._hand_phase_batch(
+            stack_poses([hand]), stack_targets([targets], self.camera), snapshot)
+        return PoseParams(*(x[0] for x in hand)), curve[0], renders[0]
 
     # phase 1.5: object transform + noise -------------------------------- #
 
-    def _obj_phase(self, obj: PoseParams, noise_pred: torch.Tensor, latents: torch.Tensor,
-                   targets: GuidanceTargets, sched: FlowMatchSchedule, step_i: int,
-                   snapshot: bool = False):
+    def _obj_phase_batch(self, obj: PoseParams, noise_pred: torch.Tensor,
+                         latents: torch.Tensor, targets: GuidanceTargets,
+                         sched: FlowMatchSchedule, step_i: int, snapshot: bool = False):
         cfg = self.config
         lrs = cfg.obj_2half_lrs
         dev = latents.device
@@ -480,26 +549,42 @@ class GuidedSampler:
                 self.camera, tmesh.verts, tmesh.faces, vn, tmesh.face_mask,
                 fov_deg=targets.fov_deg, device=dev, **self._raster_kw())
             edges, emask = mesh_edges(tmesh.faces, tmesh.face_mask)
+            edge, normal, disp, sil, reg = image_means(
+                mesh_edge_loss(tmesh.verts, edges, emask),
+                normal_alignment_loss(n01, targets.moge_normal, targets.obj_mask),
+                masked_l1(disp01, targets.moge_disp, targets.obj_mask),
+                binary_cross_entropy(out.alpha, targets.obj_mask),
+                verts_reg_loss(tmesh.verts, tmesh.vert_mask))
             total = (
-                1.0 * mesh_edge_loss(tmesh.verts, edges, emask)
-                + 10.0 * normal_alignment_loss(n01, targets.moge_normal, targets.obj_mask)
-                + 10.0 * masked_l1(disp01, targets.moge_disp, targets.obj_mask)
-                + 100.0 * binary_cross_entropy(out.alpha, targets.obj_mask)
-                + 1e-3 * verts_reg_loss(tmesh.verts, tmesh.vert_mask)
-                + 1e-2 * torch.mean(trans ** 2)
+                1.0 * edge
+                + 10.0 * normal
+                + 10.0 * disp
+                + 100.0 * sil
+                + 1e-3 * reg
+                + 1e-2 * torch.mean(trans ** 2, dim=-1)
             )
             return total, _indicators(out, n_sel, (n01, disp01) if snapshot else None)
 
-        curve, renders = _optimize(opt, cfg.optimization_steps_scale, loss_step, dev)
+        curve, renders = _optimize(opt, cfg.optimization_steps_scale, loss_step,
+                                   noise.shape[0], dev)
         return (PoseParams(scale.detach(), trans.detach(), quat.detach()), noise.detach(),
                 curve, renders)
 
+    def _obj_phase(self, obj: PoseParams, noise_pred: torch.Tensor, latents: torch.Tensor,
+                   targets: GuidanceTargets, sched: FlowMatchSchedule, step_i: int,
+                   snapshot: bool = False):
+        """One image: noise_pred and latents [1,L,E]."""
+        obj, noise, curve, renders = self._obj_phase_batch(
+            stack_poses([obj]), noise_pred, latents, stack_targets([targets], self.camera),
+            sched, step_i, snapshot)
+        return PoseParams(*(x[0] for x in obj)), noise, curve[0], renders[0]
+
     # phase 2: joint ----------------------------------------------------- #
 
-    def _joint_phase(self, hand: PoseParams, obj: PoseParams, noise_pred: torch.Tensor,
-                     latents: torch.Tensor, targets: GuidanceTargets,
-                     sched: FlowMatchSchedule, step_i: int, near_end: bool,
-                     snapshot: bool = False):
+    def _joint_phase_batch(self, hand: PoseParams, obj: PoseParams, noise_pred: torch.Tensor,
+                           latents: torch.Tensor, targets: GuidanceTargets,
+                           sched: FlowMatchSchedule, step_i: int, near_end: bool,
+                           snapshot: bool = False):
         cfg = self.config
         h_lrs, o_lrs = cfg.phase2_hand_lrs, cfg.obj_lrs
         dev = latents.device
@@ -516,20 +601,14 @@ class GuidedSampler:
              {"params": [noise], "lr": cfg.noise_obj_lr2}], eps=1e-4, weight_decay=0.01)
         xyz, bbox = self._grid(cfg.octree_resolution, dev)
         hoi_mask = targets.hand_mask | targets.obj_mask
-        n_hand_v, n_hand_f = targets.mano_verts_moge.shape[0], targets.mano_faces.shape[0]
-        hand_vmask = torch.ones(n_hand_v, device=dev)
-        hand_fmask = torch.ones(n_hand_f, device=dev)
+        B = noise.shape[0]
+        hand_vmask = torch.ones(targets.mano_verts_moge.shape[:2], device=dev)
+        hand_fmask = torch.ones(targets.mano_faces.shape[:2], device=dev)
 
         def loss_step():
             hand_verts = _transform_hand(targets, hp)
             h_terms, _ = _hand_render_losses(hand_verts, targets, self.camera,
                                              self._hand_raster_kw(), with_sil=False)
-            hand_loss = (
-                1e-4 * h_terms["kps2d"]
-                + 10.0 * h_terms["normal"]
-                + 10.0 * h_terms["disp"]
-                + 1e-2 * torch.mean(hp.trans ** 2)
-            )
 
             mesh, sdf, n_sel = self._decode(noise, latents, sched, step_i, xyz, bbox)
             tmesh = _transform_object(mesh, targets, op)
@@ -539,9 +618,8 @@ class GuidedSampler:
             d2, _ = nn_sqdist(hand_verts, tmesh.verts.detach(), tmesh.vert_mask)
             # an empty object mesh leaves huge sentinel distances: clamp, and
             # zero the term
-            has_obj = tmesh.vert_mask.sum() > 0
+            has_obj = (tmesh.vert_mask.sum(dim=-1) > 0)[:, None]
             d2 = torch.where(has_obj, d2.clamp(max=1e6), torch.zeros_like(d2))
-            distance_loss = attraction_loss(d2, margin=0.01)
 
             # the count is gradient-free; away from the end its weight is 1e-9,
             # numerically irrelevant, so it is computed only near the end
@@ -552,9 +630,9 @@ class GuidedSampler:
                     sdf.detach(), bbox, cfg.octree_resolution, targets,
                     PoseParams(*(x.detach() for x in op)))
             else:
-                inter = torch.zeros((), device=dev)
+                inter = torch.zeros(B, device=dev)
             if near_end:
-                w_inter = torch.where(d2.mean() < 0.001, 1e-5, 1e-9)
+                w_inter = torch.where(d2.mean(dim=-1) < 0.001, 1e-5, 1e-9)
             else:
                 w_inter = 1e-9
 
@@ -565,22 +643,49 @@ class GuidedSampler:
                 fov_deg=targets.fov_deg, device=dev, **self._raster_kw())
 
             edges, emask = mesh_edges(tmesh.faces, tmesh.face_mask)
+            # one reduction for all of the iteration's means, the hand's included
+            (h_kps2d, h_normal, h_disp, distance_loss, normal, disp, sil, reg,
+             edge) = image_means(
+                *h_terms,
+                attraction_loss(d2, margin=0.01),
+                normal_alignment_loss(n01, targets.moge_normal, hoi_mask),
+                masked_l1(disp01, targets.moge_disp),
+                binary_cross_entropy(out.alpha, hoi_mask),
+                verts_reg_loss(tmesh.verts, tmesh.vert_mask),
+                mesh_edge_loss(tmesh.verts, edges, emask))
+            hand_loss = (
+                1e-4 * h_kps2d
+                + 10.0 * h_normal
+                + 10.0 * h_disp
+                + 1e-2 * torch.mean(hp.trans ** 2, dim=-1)
+            )
             total = (
                 w_inter * inter
                 + 10.0 * distance_loss
-                + 10.0 * normal_alignment_loss(n01, targets.moge_normal, hoi_mask)
-                + 10.0 * masked_l1(disp01, targets.moge_disp)
-                + 10.0 * binary_cross_entropy(out.alpha, hoi_mask)
-                + 1e-3 * verts_reg_loss(tmesh.verts, tmesh.vert_mask)
-                + 1.0 * mesh_edge_loss(tmesh.verts, edges, emask)
-                + 1e-3 * torch.mean(op.trans ** 2)
+                + 10.0 * normal
+                + 10.0 * disp
+                + 10.0 * sil
+                + 1e-3 * reg
+                + 1.0 * edge
+                + 1e-3 * torch.mean(op.trans ** 2, dim=-1)
                 + 1e-3 * hand_loss
             )
             return total, _indicators(out, n_sel, (n01, disp01) if snapshot else None)
 
-        curve, renders = _optimize(opt, cfg.optimization_steps_joint, loss_step, dev)
+        curve, renders = _optimize(opt, cfg.optimization_steps_joint, loss_step, B, dev)
         return (PoseParams(*(x.detach() for x in hp)), PoseParams(*(x.detach() for x in op)),
                 noise.detach(), curve, renders)
+
+    def _joint_phase(self, hand: PoseParams, obj: PoseParams, noise_pred: torch.Tensor,
+                     latents: torch.Tensor, targets: GuidanceTargets,
+                     sched: FlowMatchSchedule, step_i: int, near_end: bool,
+                     snapshot: bool = False):
+        """One image: noise_pred and latents [1,L,E]."""
+        hand, obj, noise, curve, renders = self._joint_phase_batch(
+            stack_poses([hand]), stack_poses([obj]), noise_pred, latents,
+            stack_targets([targets], self.camera), sched, step_i, near_end, snapshot)
+        return (PoseParams(*(x[0] for x in hand)), PoseParams(*(x[0] for x in obj)), noise,
+                curve[0], renders[0])
 
     # main loop ----------------------------------------------------------- #
 
@@ -673,10 +778,13 @@ class GuidedSampler:
         its slice of ``initial_noise`` or a draw from its generator, as
         ``run`` draws them. The DiT runs once a step for all images (batch
         2B with the guidance pairs) and the CFG scale decays as in ``run``.
-        The optimization phases of a step run image by image, in turn: where
-        the reference maps them over the batch, these size their buffers from
-        counts read back to the host, and batching them waits for static
-        capacities (ROADMAP 2.E part 1). Capacity warnings carry "(batched)".
+        Each optimization phase runs once a step for all images too
+        (``_hand_phase_batch``, ``_obj_phase_batch``, ``_joint_phase_batch``):
+        one render, decode and marching tets an iteration for the batch, each
+        image's losses on their own, one optimizer over the stacked leaves;
+        the sizes they read back to the host are read once for the batch.
+        Capacity warnings name the image and carry "(batched)"; each image's
+        debug directory gets its own loss lines and render snapshots.
         -> a GuidanceResult whose leaves lead with B; ``losses[tag]`` is
         [B, iterations].
 
@@ -700,11 +808,10 @@ class GuidedSampler:
         else:
             latents = torch.cat([torch.randn((1, *latent_shape), generator=gen, device=dev)
                                  for gen in generators])
-        targets = [t.to(dev) for t in targets]
+        targets = stack_targets([t.to(dev) for t in targets], self.camera)
         debugs = list(debugs) if debugs is not None else [None] * B
         dumps = [d is not None and d.enabled for d in debugs]
-        hands = [init_pose(dev) for _ in range(B)]
-        objs = [init_pose(dev) for _ in range(B)]
+        hand = obj = stack_poses([init_pose(dev)] * B)
         # [cond of every image; uncond of every image] against [latents; latents]
         cond_cat = torch.cat([cond_main[:, 0], uncond_main[:, 0]], dim=0).to(dev)
 
@@ -723,39 +830,29 @@ class GuidedSampler:
             tag, phase = _phase_at(cfg, i)
             if tag is not None:
                 t0 = time.perf_counter()
-                curves, merged, preds = [], {}, []
-                for b in range(B):
-                    noise_b, lat_b = noise_pred[b:b + 1], latents[b:b + 1]
-                    if phase == "hand":
-                        hands[b], curve, renders = self._hand_phase(hands[b], targets[b],
-                                                                    snapshot=dumps[b])
-                    elif phase == "obj":
-                        objs[b], noise_b, curve, renders = self._obj_phase(
-                            objs[b], noise_b, lat_b, targets[b], sched, i, snapshot=dumps[b])
-                    else:
-                        hands[b], objs[b], noise_b, curve, renders = self._joint_phase(
-                            hands[b], objs[b], noise_b, lat_b, targets[b], sched, i,
-                            near_end=i >= n - 3, snapshot=dumps[b])
-                    preds.append(noise_b)
-                    curves.append(curve)
-                    if dumps[b]:
-                        _debug_log_phase(debugs[b], tag, curve, renders)
-                    for name, values in renders.items():
-                        merged.setdefault(name, []).extend(values)
-                noise_pred = torch.cat(preds)
+                snapshot = any(dumps)
+                if phase == "hand":
+                    hand, curves, renders = self._hand_phase_batch(hand, targets,
+                                                                   snapshot=snapshot)
+                elif phase == "obj":
+                    obj, noise_pred, curves, renders = self._obj_phase_batch(
+                        obj, noise_pred, latents, targets, sched, i, snapshot=snapshot)
+                else:
+                    hand, obj, noise_pred, curves, renders = self._joint_phase_batch(
+                        hand, obj, noise_pred, latents, targets, sched, i,
+                        near_end=i >= n - 3, snapshot=snapshot)
                 _sync(dev)
                 seconds[phase] += time.perf_counter() - t0
-                loss_log[tag] = torch.stack(curves)
-                self._warn_capacity(f"{tag} (batched)", merged)
+                loss_log[tag] = curves
+                for b in range(B):
+                    if dumps[b]:
+                        _debug_log_phase(debugs[b], tag, curves[b], renders[b])
+                self._warn_capacity_batch(tag, renders)
 
             latents = step(sched, i, noise_pred, latents)[0]
 
-        def stacked(poses):
-            return PoseParams(*(torch.stack(x) for x in zip(*poses)))
-
         return GuidanceResult(latents=latents[:, None], noise_pred=noise_pred[:, None],
-                              hand=stacked(hands), obj=stacked(objs), losses=loss_log,
-                              seconds=seconds)
+                              hand=hand, obj=obj, losses=loss_log, seconds=seconds)
 
     def _run_batch_sharded(self, mesh, cond_main, uncond_main, targets, latent_shape,
                            initial_noise, generators, device, debugs) -> GuidanceResult:
@@ -795,6 +892,7 @@ class GuidedSampler:
         res = self.config.octree_resolution
         xyz, bbox = self._grid(res, latents.device)
         mesh, _, _ = self._decode(noise_pred, latents, sched, step_i, xyz, bbox)
+        mesh = PaddedMesh(*(x[0] for x in mesh))
         nv, nf = int(mesh.num_verts), int(mesh.num_faces)
         if nf > 0:
             debug.dump_mesh(f"{tag}_obj.ply", mesh.verts[:nv].cpu().numpy(),
@@ -809,7 +907,7 @@ class GuidedSampler:
         hand_verts = _transform_hand(targets, hand)
         xyz, bbox = self._grid(self.config.octree_resolution, dev)
         mesh, _, _ = self._decode(noise_pred, latents, sched, step_i, xyz, bbox)
-        tmesh = _transform_object(mesh, targets, obj)
+        tmesh = _transform_object(PaddedMesh(*(x[0] for x in mesh)), targets, obj)
         hoi = _join_meshes(hand_verts, targets.mano_faces,
                            torch.ones(hand_verts.shape[0], device=dev),
                            torch.ones(targets.mano_faces.shape[0], device=dev), tmesh)

@@ -19,7 +19,7 @@ outputs, the same skip-and-continue, task-list sharding and flags. Per image:
 sampler in a one-worker pool, as the reference does. With ``batch_size > 1``
 (``--batch_size``) it groups the images into batches (``_run_batched``), and
 ``run_batch_images`` takes each batch through one ``GuidedSampler.run_batch``
-(the DiT once a step for the batch, the phases image by image) and the
+(the DiT and each optimization phase once a step for the batch) and the
 exports through a two-worker pool, so that one image's host extraction
 overlaps the other's device decode.
 
@@ -137,6 +137,15 @@ def build_targets(
     ).to(dev)
 
 
+def _pose_scale(result, targets) -> float:
+    """How many times its decoded size the exported object is: the object
+    pose's scale times that of the hunyuan -> moge similarity (the cube root
+    of its determinant)."""
+    s = abs(float(result.obj.scale.reshape(-1)[0]))
+    sigma = abs(float(torch.linalg.det(targets.t_h2m[:3, :3].double().cpu()))) ** (1.0 / 3.0)
+    return s * sigma
+
+
 def _export_and_write(sampler: GuidedSampler, result, targets, config: OptimizationConfig,
                       cropped_obj_img_path: str, save_path_obj: str, save_path_hand: str,
                       debug=None, device: DeviceLike = "cuda"):
@@ -155,7 +164,12 @@ def _export_and_write(sampler: GuidedSampler, result, targets, config: Optimizat
     verts = obj_mesh.verts[:nv].cpu().numpy()
     faces = obj_mesh.faces[:nf].cpu().numpy().astype(np.int32)
     verts, faces = remove_floaters(verts, faces)
-    verts, faces = remove_degenerate_faces(verts, faces)
+    # the reference's threshold (1e-12 on the squared cross product), taken in
+    # the decoded mesh's frame: applied to the posed mesh as the reference
+    # applies it, it removes every face of an object posed below about a sixth
+    # of its decoded size (ROADMAP §3)
+    verts, faces = remove_degenerate_faces(verts, faces,
+                                           eps=1e-12 * _pose_scale(result, targets) ** 4)
     # the quadric decimation assumes a closed mesh: the export is closed
     # wherever it stays inside the decode box
     verts, faces = reduce_faces(verts, faces)

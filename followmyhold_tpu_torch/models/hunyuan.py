@@ -29,7 +29,7 @@ import dataclasses
 import math
 import os
 import warnings
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +38,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from followmyhold_tpu_torch.ops.attention import multi_head_attention
-from followmyhold_tpu_torch.ops.indexing import take_rows
+from followmyhold_tpu_torch.ops.indexing import (
+    first_per_image,
+    image_offsets,
+    take_image_rows,
+    take_rows,
+)
 
 _NORM_EPS = 1e-6  # Flax's default, not torch's 1e-5
 
@@ -512,31 +517,32 @@ def vae_query_logits(
 # ---------------------------------------------------------------------------
 
 def _upsample_corner_aligned(g: torch.Tensor, cf: int) -> torch.Tensor:
-    """Corner-aligned trilinear upsample [n_c]^3 -> [(n_c-1)*cf+1]^3. The
-    in-loop decode's background values feed differentiable SDF losses, so
-    they interpolate."""
+    """Corner-aligned trilinear upsample [..., n_c, n_c, n_c] -> [...,
+    (n_c-1)*cf+1, ...]^3 (of each image of a batch). The in-loop decode's
+    background values feed differentiable SDF losses, so they interpolate."""
 
-    def up_axis(a):
-        base, nxt = a[:-1], a[1:]
-        parts = torch.stack([base * (1 - r / cf) + nxt * (r / cf) for r in range(cf)], dim=1)
-        out = parts.reshape((a.shape[0] - 1) * cf, *a.shape[1:])
-        return torch.cat([out, a[-1:]], dim=0)
+    def up_axis(a):   # along the third axis from the end
+        base, nxt = a[..., :-1, :, :], a[..., 1:, :, :]
+        parts = torch.stack([base * (1 - r / cf) + nxt * (r / cf) for r in range(cf)], dim=-3)
+        out = parts.reshape(*a.shape[:-3], (a.shape[-3] - 1) * cf, *a.shape[-2:])
+        return torch.cat([out, a[..., -1:, :, :]], dim=-3)
 
     for _ in range(3):
-        g = torch.movedim(up_axis(g), 0, 2)
+        g = torch.movedim(up_axis(g), -3, -1)
     return g
 
 
 def _select_surface_cells(g_c3: torch.Tensor, res_c: int, pad_factor: float) -> torch.Tensor:
-    """Flat bool [res_c^3] mask of the cells whose corner values could cross
-    zero within a ``pad_factor`` margin of their spread."""
-    cs = torch.stack([g_c3[dx:dx + res_c, dy:dy + res_c, dz:dz + res_c]
+    """Flat bool [..., res_c^3] mask of the cells whose corner values could
+    cross zero within a ``pad_factor`` margin of their spread (g_c3 [...,
+    n_c, n_c, n_c], of each image of a batch)."""
+    cs = torch.stack([g_c3[..., dx:dx + res_c, dy:dy + res_c, dz:dz + res_c]
                       for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)])
     cmin, cmax = cs.amin(0), cs.amax(0)
     min_abs = torch.minimum(cmin.abs(), cmax.abs())
     spread = cmax - cmin
     select = ((cmin <= 0) & (cmax >= 0)) | (min_abs < pad_factor * spread)
-    return select.reshape(-1)
+    return select.flatten(-3)
 
 
 def _noncoarse_offsets(cf: int) -> np.ndarray:
@@ -571,9 +577,9 @@ def _refine_points(cell_ids: torch.Tensor, res_c: int, cf: int, n_f: int) -> tor
     return mark.nonzero().squeeze(1)
 
 
-def vae_query_logits_hier_grid(
+def vae_query_logits_hier_grid_batch(
     vae: ShapeVAE,
-    latents: torch.Tensor,            # [1, L, E]
+    latents: torch.Tensor,            # [B, L, E]
     bbox_min,
     bbox_max,
     resolution: int,
@@ -584,41 +590,47 @@ def vae_query_logits_hier_grid(
     remat: str = "none",
     small_cell_cap: Optional[int] = None,
     group: int = 4,
-) -> Tuple[torch.Tensor, int]:
-    """Differentiable two-level grid decode -> (dense logits [1, (res+1)^3],
-    capacity indicator).
+) -> Tuple[torch.Tensor, List[int]]:
+    """Differentiable two-level grid decode of B images at once -> (dense
+    logits [B, (res+1)^3], each image's capacity indicator).
 
     The loss gradient reaches the logits only at surface-crossing cells, so:
     decode the coarse lattice at ``res/cf`` (an exact subset of the fine
     grid), select cells whose corners could cross zero within a
     ``pad_factor`` margin (under ``detach``: the selection is discrete), and
     query only the non-coarse fine points of the selected cells, each point
-    once. Cells are truncated at ``cell_cap`` in ascending id order and refine
-    points at ``9*cf^3/8 * cell_cap`` in ascending order; what is missed keeps
-    the trilinearly interpolated background.
+    once. Each image's cells are truncated at ``cell_cap`` in ascending id
+    order and its refine points at ``9*cf^3/8 * cell_cap`` in ascending order;
+    what is missed keeps the trilinearly interpolated background.
 
     The fine values are composed onto the upsampled background by a
     delta/multiplicity scatter-add, so values and gradients equal the dense
-    decode's wherever marching tets emits geometry. The indicator is
+    decode's wherever marching tets emits geometry. An image's indicator is
     ``max(n_selected_cells, ceil(n_points / point_cap * cell_cap))``: above
-    ``cell_cap`` iff the cells or the points overflowed.
+    ``cell_cap`` iff its cells or its points overflowed.
 
-    Where the reference pads the refine set with copies of point 0 to a static
-    size, this sizes it exactly; two capacities that both fit compose to the
-    same grid, so ``small_cell_cap`` (the reference's two-tier capacity) is
-    accepted and has no effect here.
+    The coarse lattice and each level's refine points go through one geo
+    query for the whole batch: every image's refine points are padded to the
+    largest count in the batch with rows at the lattice's point 0 whose delta
+    is zeroed, so they add nothing to any value or gradient, and each image's
+    grid is the one it gets alone (up to the geo query's sums, which may round
+    apart at another batch size). The sizes are read back to the host once,
+    for all images. Where the reference pads the refine set with copies of
+    point 0 to a static size, this sizes it to the batch; two capacities that
+    both fit compose to the same grid, so ``small_cell_cap`` (the reference's
+    two-tier capacity) is accepted and has no effect here.
     """
-    del small_cell_cap   # exact sizing: see the docstring
+    del small_cell_cap   # sizing to the batch: see the docstring
     if coarse_factor < 2:
         raise ValueError("coarse_factor 1 has an empty refine set; use the dense decode")
     if resolution % coarse_factor:
         raise ValueError(f"resolution {resolution} is not a multiple of {coarse_factor}")
-    if latents.shape[0] != 1:
-        raise ValueError("the in-loop decode is per image: latents must be [1, L, E]")
     cf = coarse_factor
     res_c = resolution // cf
     cell_cap = min(cell_cap, res_c ** 3)
     n_c, n_f = res_c + 1, resolution + 1
+    n_fine = n_f ** 3
+    B = latents.shape[0]
     dev = latents.device
     lo = torch.as_tensor(bbox_min, dtype=torch.float32, device=dev)
     hi = torch.as_tensor(bbox_max, dtype=torch.float32, device=dev)
@@ -629,38 +641,66 @@ def vae_query_logits_hier_grid(
     # level 1: the coarse sub-lattice (every cf-th fine point)
     idx_c = torch.arange(n_c, device=dev) * cf
     ijk_c = torch.stack(torch.meshgrid(idx_c, idx_c, idx_c, indexing="ij"), dim=-1)
-    pts_c = lo + ijk_c.float() * step_f
-    g_c = _geo_query_grouped(vae, kv, pts_c.reshape(1, -1, 3), chunk, group, remat)[0]
-    g_c3 = g_c.reshape(n_c, n_c, n_c)
+    pts_c = (lo + ijk_c.float() * step_f).reshape(1, -1, 3).expand(B, -1, -1)
+    g_c = _geo_query_grouped(vae, kv, pts_c, chunk, group, remat)
+    g_c3 = g_c.reshape(B, n_c, n_c, n_c)
 
-    # the surface cells, discrete and without gradient
-    select = _select_surface_cells(g_c3.detach(), res_c, pad_factor)
-    cell_ids = select.nonzero().squeeze(1)
-    n_sel = cell_ids.numel()
-    cell_ids = cell_ids[:cell_cap]
+    # the surface cells, discrete and without gradient; each image's first
+    # cell_cap of them in ascending id order mark their non-coarse points on
+    # the fine lattice (a cell beyond the cap marks the extra column instead)
+    select = _select_surface_cells(g_c3.detach(), res_c, pad_factor)     # [B, res_c^3]
+    img, cell_ids, rank, n_sel = first_per_image(select, cell_cap)
+    ci = cell_ids // (res_c * res_c)
+    cj = (cell_ids // res_c) % res_c
+    ck = cell_ids % res_c
+    base = torch.stack([ci, cj, ck], dim=-1) * cf                        # [K,3]
+    offs = torch.as_tensor(_noncoarse_offsets(cf), device=dev)           # [P,3]
+    fine = base[:, None, :] + offs[None]                                 # [K,P,3]
+    flat = (fine[..., 0] * n_f + fine[..., 1]) * n_f + fine[..., 2]
+    flat = torch.where((rank < cell_cap)[:, None], flat, torch.full_like(flat, n_fine))
+    mark = torch.zeros((B, n_fine + 1), dtype=torch.bool, device=dev)
+    mark[img[:, None].expand_as(flat), flat] = True
 
-    # level 2: each non-coarse lattice point of the selected cells, once
-    point_cap = min(_refine_point_budget(cf) * cell_cap, n_f ** 3)
-    pt_ids = _refine_points(cell_ids, res_c, cf, n_f)
-    n_pts = pt_ids.numel()
-    pt_ids = pt_ids[:point_cap]
+    # level 2: each image's marked points, ascending, at most point_cap of them
+    point_cap = min(_refine_point_budget(cf) * cell_cap, n_fine)
+    # the one host read after the cells' nonzero: both levels' counts
+    sizes = torch.stack([n_sel, mark[:, :n_fine].sum(dim=1)]).tolist()
+    p_img, p_ids, p_rank, _ = first_per_image(mark[:, :n_fine], point_cap, total=sum(sizes[1]))
+    width = min(max(sizes[1]), point_cap) if B else 0
+    pt_ids = torch.full((B, width + 1), -1, dtype=torch.long, device=dev)
+    pt_ids[p_img, p_rank] = p_ids
+    pt_ids = pt_ids[:, :width]
+    real = pt_ids >= 0
+    pt_ids = pt_ids.clamp(min=0)                                         # padding: point 0
     fijk = torch.stack([pt_ids // (n_f * n_f), (pt_ids // n_f) % n_f, pt_ids % n_f], dim=-1)
     pts_f = lo + fijk.float() * step_f
-    g_f = _geo_query_grouped(vae, kv, pts_f.reshape(1, -1, 3), chunk, group, remat)[0]
+    g_f = _geo_query_grouped(vae, kv, pts_f, chunk, group, remat)        # [B, width]
 
-    # compose: trilinear background + delta/multiplicity scatter-add. pt_ids
-    # comes from nonzero(), so no index repeats: each float index_add below
-    # adds once to its row, and the sum does not depend on the run.
-    dense_bg = _upsample_corner_aligned(g_c3, cf).reshape(-1)            # [n_f^3]
-    up_at = take_rows(dense_bg, pt_ids)
-    mult = torch.zeros(n_f ** 3, dtype=torch.float32, device=dev).index_add_(
-        0, pt_ids, torch.ones_like(g_f))
-    delta = (g_f - up_at) / take_rows(mult, pt_ids).clamp(min=1.0)
-    dense = dense_bg.index_add(0, pt_ids, delta)
+    # compose: trilinear background + delta/multiplicity scatter-add. An
+    # image's points are distinct, so each float index_add below adds once to
+    # a row (and zero where a row pads), and the sum does not depend on the run.
+    dense_bg = _upsample_corner_aligned(g_c3, cf).reshape(B, n_fine)
+    rows = (pt_ids + image_offsets(B, n_fine, dev)[:, None]).reshape(-1)
+    up_at = take_image_rows(dense_bg, pt_ids)
+    mult = torch.zeros(B * n_fine, dtype=torch.float32, device=dev).index_add_(
+        0, rows, real.reshape(-1).float())
+    delta = (g_f - up_at) / take_rows(mult, rows).reshape(B, width).clamp(min=1.0)
+    delta = torch.where(real, delta, torch.zeros_like(delta))
+    dense = dense_bg.reshape(-1).index_add(0, rows, delta.reshape(-1)).reshape(B, n_fine)
 
     # points scaled into cell units in float32, as the reference computes it
-    pts_scaled = int(np.ceil(np.float32(n_pts) / np.float32(point_cap) * np.float32(cell_cap)))
-    return dense[None], max(n_sel, pts_scaled)
+    indicators = [max(c, int(np.ceil(np.float32(p) / np.float32(point_cap)
+                                     * np.float32(cell_cap))))
+                  for c, p in zip(*sizes)]
+    return dense, indicators
+
+
+def vae_query_logits_hier_grid(vae: ShapeVAE, latents: torch.Tensor, *args, **kwargs
+                               ) -> Tuple[torch.Tensor, int]:
+    """``vae_query_logits_hier_grid_batch`` with the batch's worst capacity
+    indicator, an int: for latents [1, L, E], that image's."""
+    dense, indicators = vae_query_logits_hier_grid_batch(vae, latents, *args, **kwargs)
+    return dense, max(indicators)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from followmyhold_tpu_torch.ops.indexing import image_rows, scatter_rows_add
 from followmyhold_tpu_torch.ops.precision import matmul_f32
 from followmyhold_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -230,8 +231,19 @@ def mano_forward(
 
 def mano_vert_to_3dkps(verts: torch.Tensor, j_regressor16: torch.Tensor) -> torch.Tensor:
     """Keypoints from an already-posed MANO mesh: 16 regressed joints + 5
-    fingertip verts, OpenPose order. verts [778,3]; j_regressor16 [16,778]."""
-    regressed = matmul_f32(j_regressor16, verts)
-    tips = verts[list(FINGERTIP_VERTEX_IDS)]
-    kps = torch.cat([regressed, tips], dim=0)
-    return kps[list(MANO_TO_OPENPOSE)]
+    fingertip verts, OpenPose order. verts [778,3]; j_regressor16 [16,778];
+    or a batch, [B,778,3] and [B,16,778] -> [B,21,3].
+
+    Each joint is the sum of its 778 weighted vertices through
+    ``scatter_rows_add`` (fixed point on the card), so that each image's
+    keypoints and their gradient do not depend on the batch, as a batched
+    matrix product's would there; one mesh is a batch of one."""
+    if verts.dim() == 2:
+        return mano_vert_to_3dkps(verts[None], j_regressor16[None])[0]
+    B, V = verts.shape[:2]
+    terms = j_regressor16.float()[..., None] * verts.float()[:, None]     # [B,16,V,3]
+    regressed = scatter_rows_add(B * 16, image_rows(B * 16, V, verts.device),
+                                 terms.reshape(-1, 3)).reshape(B, 16, 3)
+    tips = verts[..., list(FINGERTIP_VERTEX_IDS), :]
+    kps = torch.cat([regressed, tips], dim=-2)
+    return kps[..., list(MANO_TO_OPENPOSE), :]

@@ -48,8 +48,8 @@ ENTRY_POINTS = {
     "fmh_flash_attention_fwd": "pppppiiiifp",
     "fmh_flash_attention_bwd": "pppppppppiiiifp",
     "fmh_raster_chunk_plan": "ppiip",
-    "fmh_raster_fwd": "ppppppppiiiiiffffp",
-    "fmh_raster_bwd": "pppppppppiiiiiffp",
+    "fmh_raster_fwd": "ppppppppiiiiiiffffp",
+    "fmh_raster_bwd": "pppppppppiiiiiiffp",
     "fmh_scatter_rows_add": "ppppiiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

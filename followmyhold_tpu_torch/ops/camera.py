@@ -99,13 +99,16 @@ class GuidanceCamera:
         """World points [..., 3] -> (u, v, depth) [..., 3].
 
         (u, v) in pixels (origin top-left, v down); depth is camera-space z,
-        clamped at 1e-6 only inside the division.
+        clamped at 1e-6 only inside the division. A ``fov_deg`` of shape [B]
+        gives each image of points [B, ..., 3] its own field of view.
         """
         cam = self.to_camera_space(points)
         z = cam[..., 2].clamp(min=1e-6)
         f = self._focal(fov_deg)
         if isinstance(f, torch.Tensor):
             f = f.to(points.device)
+            if f.dim() == 1:
+                f = f.reshape(-1, *([1] * (points.dim() - 2)))
         u = (self.width - 1) / 2.0 + f * cam[..., 0] / z
         v = (self.height - 1) / 2.0 + f * cam[..., 1] / z
         return torch.stack([u, v, cam[..., 2]], dim=-1)

@@ -37,9 +37,14 @@ def generate_dense_grid_points(
 def generate_grid(bbox_min: torch.Tensor, bbox_max: torch.Tensor,
                   octree_resolution: int) -> torch.Tensor:
     """(R+1)^3 grid over a bbox given as tensors (a bbox that changes every
-    iteration), 'ij' indexing, flattened [N, 3], on the bbox's device."""
+    iteration), 'ij' indexing, flattened [N, 3], on the bbox's device. Bboxes
+    [B,3] give each image its grid: [B, N, 3]."""
     n = int(octree_resolution) + 1
     t = torch.linspace(0.0, 1.0, n, dtype=torch.float32, device=bbox_min.device)
-    axes = [bbox_min[d] + t * (bbox_max[d] - bbox_min[d]) for d in range(3)]
-    xs, ys, zs = torch.meshgrid(*axes, indexing="ij")
-    return torch.stack([xs, ys, zs], dim=-1).reshape(-1, 3)
+    x, y, z = (bbox_min[..., d, None] + t * (bbox_max[..., d, None] - bbox_min[..., d, None])
+               for d in range(3))                                   # [..., n] each
+    shape = (*bbox_min.shape[:-1], n, n, n)
+    xs = x[..., :, None, None].expand(shape)
+    ys = y[..., None, :, None].expand(shape)
+    zs = z[..., None, None, :].expand(shape)
+    return torch.stack([xs, ys, zs], dim=-1).reshape(*bbox_min.shape[:-1], -1, 3)

@@ -14,10 +14,19 @@ apart.
 CUDA tensor the kernel csrc/scatter_rows.cu, which adds in 64-bit fixed point
 (integer sums do not depend on their order), with no float atomics and nothing
 read back to the host. On a CPU tensor it is ``scatter_rows_add_plain``,
-``index_add_``, which adds in index order there.
+``index_add_`` in float64, which adds in index order there.
+
+A batch of images takes per-image values and per-image sums through these
+too (``repeat_per_image``, ``ops/losses.image_means``), so that each image's
+numbers, gradients included, do not depend on which images share its batch:
+cuBLAS's batched products and torch's reductions split their sums by the
+batch size on the card, and a broadcast's gradient is such a reduction.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Optional
 
 import torch
 
@@ -25,10 +34,11 @@ from followmyhold_tpu_torch.ops import _kernels
 
 
 def scatter_rows_add_plain(n_rows: int, index: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """Plain version: ``zeros(n_rows, ...).index_add_(0, index, src)``. It adds
+    """Plain version: ``zeros(n_rows, ...).index_add_(0, index, src)``, added
+    in float64 and rounded once, as the kernel's fixed point nearly is. It adds
     in index order on the CPU; on the card its atomics do not."""
-    out = torch.zeros((n_rows, *src.shape[1:]), dtype=src.dtype, device=src.device)
-    return out.index_add_(0, index.reshape(-1), src)
+    out = torch.zeros((n_rows, *src.shape[1:]), dtype=torch.float64, device=src.device)
+    return out.index_add_(0, index.reshape(-1), src.double()).to(src.dtype)
 
 
 def scatter_rows_add_forward(n_rows: int, index: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -115,3 +125,52 @@ def take_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     gradient is a deterministic scatter-add."""
     out = _TakeRows.apply(x, index.reshape(-1))
     return out.reshape(*index.shape, *x.shape[1:])
+
+
+def take_image_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """Per image b of a batch, rows ``index[b]`` of ``x[b]``: x [B,N,...], index
+    [B,...] integer -> [B, *index.shape[1:], ...]. One ``take_rows`` over the
+    images' rows laid end to end, so its gradient is the same scatter."""
+    B, N = x.shape[:2]
+    offsets = image_offsets(B, N, index.device).reshape(B, *([1] * (index.dim() - 1)))
+    return take_rows(x.reshape(B * N, *x.shape[2:]), index + offsets)
+
+
+@functools.lru_cache(maxsize=32)
+def image_offsets(n_images: int, n: int, device: torch.device) -> torch.Tensor:
+    """[n_images] int64: b * n, the first row of image b where images of n
+    rows each lie end to end; made once for each shape, never written to."""
+    return torch.arange(n_images, device=device) * n
+
+
+@functools.lru_cache(maxsize=32)
+def image_rows(n_images: int, n: int, device: torch.device) -> torch.Tensor:
+    """[n_images * n] int64: 0 n times, then 1 n times, ...; made once for
+    each shape (an iteration asks for the same few), never written to."""
+    return torch.arange(n_images, device=device).repeat_interleave(n)
+
+
+def repeat_per_image(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Each image's value x[b] (x [B, ...]) on each of its n points or pixels:
+    [B, n, ...]. A gather, so the gradient of each image's value is a
+    ``scatter_rows_add`` over its own points: a sum that does not depend on
+    which images share the batch, where a broadcast's gradient is a torch
+    reduction whose split follows the batch size."""
+    B = x.shape[0]
+    return take_rows(x, image_rows(B, n, x.device)).reshape(B, n, *x.shape[1:])
+
+
+def first_per_image(present: torch.Tensor, cap: int, total: Optional[int] = None):
+    """Each image's first ``cap`` set entries of ``present`` [B,N] bool, in
+    ascending order: (image, entry, slot), where slot is the entry's rank within
+    its image, or ``cap`` (a slot past the buffer) for an entry beyond the cap;
+    and each image's true count [B]. One host read, the nonzero's, sizes it all;
+    none where the caller has read the set entries' ``total`` already."""
+    if total is None:
+        img, idx = present.nonzero(as_tuple=True)
+    else:
+        img, idx = torch.nonzero_static(present, size=total).unbind(1)
+    count = present.sum(dim=1)
+    first = torch.cumsum(count, 0) - count
+    rank = torch.arange(img.numel(), device=present.device) - first[img]
+    return img, idx, torch.where(rank < cap, rank, torch.full_like(rank, cap)), count

@@ -11,7 +11,11 @@ How a render goes:
    padded with the silhouette's reach (torch ops). A tile's faces are packed
    contiguously in ascending face id: ``face_list[P]`` with ``tile_start[T+1]``.
    ``faces_per_tile`` caps a tile's list; ``RasterOut.bin_max`` reports the true
-   worst count so that callers can warn when faces were dropped.
+   worst count so that callers can warn when faces were dropped. A batch of B
+   images (verts [B,V,3]) is binned image by image as one image is, and the B
+   packed lists join image-major into one list of B*T tiles over the images'
+   concatenated faces, so that each kernel runs once for the batch; every
+   output then leads with B.
 2. ``raster_tiles`` returns, per pixel, the winning slot of the tile's list with
    its barycentrics (w1, w2), and the visibility product of the soft coverage.
    On a CUDA tensor this is the kernel pair csrc/raster_fwd.cu and
@@ -38,7 +42,7 @@ seen edge-on): the plain version then counts the pair, the kernels do not.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -47,7 +51,12 @@ from torch.utils.checkpoint import checkpoint
 from followmyhold_tpu_torch.ops import _kernels
 from followmyhold_tpu_torch.ops import precision  # noqa: F401  (sets the TF32 policy)
 from followmyhold_tpu_torch.ops.camera import FovLike, GuidanceCamera
-from followmyhold_tpu_torch.ops.indexing import take_rows
+from followmyhold_tpu_torch.ops.indexing import (
+    image_rows,
+    repeat_per_image,
+    take_image_rows,
+    take_rows,
+)
 from followmyhold_tpu_torch.utils.device import DeviceLike, resolve_device
 
 TILE_H = 16
@@ -62,19 +71,22 @@ RASTER_CHUNK = 64
 
 
 class RasterOut(NamedTuple):
+    """One image's render, or a batch's with every tensor leading with B."""
+
     zbuf: torch.Tensor     # [H,W] camera-space depth, -1 where no face
     normal: torch.Tensor   # [H,W,3] interpolated vertex normals (unnormalized), 0 where empty
     alpha: torch.Tensor    # [H,W] soft silhouette in [0,1]
     face_id: torch.Tensor  # [H,W] int64 winning face, -1 where empty
-    # true (pre-clamp) max faces overlapping one tile: if this exceeds
-    # bin_capacity, faces were dropped in the densest tiles (wrong pixels AND
-    # wrong gradients there)
-    bin_max: int = 0
+    # true (pre-clamp) max faces overlapping one tile (a list, one per image, for
+    # a batch): if this exceeds bin_capacity, faces were dropped in the densest
+    # tiles (wrong pixels AND wrong gradients there)
+    bin_max: Union[int, List[int]] = 0
     bin_capacity: int = 0
 
 
 class RasterMeta(NamedTuple):
     tiles_x: int
+    tiles_per_image: int   # the packed lists hold T / tiles_per_image images in turn
     inv_sigma: float
     znear: float
     zfar: float
@@ -92,48 +104,61 @@ class RasterMeta(NamedTuple):
 
 def _bin_faces(tri: torch.Tensor, valid: torch.Tensor, H: int, W: int,
                faces_per_tile: int, sigma_px: float):
-    """Tile/face overlap -> packed per-tile face lists.
+    """Tile/face overlap of B images -> their packed per-tile face lists, joined
+    image-major.
 
-    Returns (face_list [P] int64 ascending within a tile, tile_start [T+1]
-    int32, bin_max int). A tile keeps its first ``faces_per_tile`` faces.
+    tri [B,F,3,3], valid [B,F]. Returns (face_list [P] int64: the faces of image
+    b are numbered b*F + f, ascending within a tile; tile_start [B*T+1] int32;
+    bin_max, each image's true worst count as a list). A tile keeps its first
+    ``faces_per_tile`` faces, as it would alone.
     """
     dev = tri.device
+    B, F = valid.shape
     ty, tx = H // TILE_H, W // TILE_W
     n_tiles = ty * tx
     pad = sigma_px * 3.0 + 1.0
     xy = tri[..., :2].detach()
-    fmin = xy.amin(dim=1) - pad                      # [F,2]
-    fmax = xy.amax(dim=1) + pad
+    fmin = xy.amin(dim=2) - pad                      # [B,F,2]
+    fmax = xy.amax(dim=2) + pad
 
     tile_ids = torch.arange(n_tiles, device=dev)
-    tile_y0 = (tile_ids // tx) * TILE_H
-    tile_x0 = (tile_ids % tx) * TILE_W
+    tile_y0 = ((tile_ids // tx) * TILE_H)[None, :, None]
+    tile_x0 = ((tile_ids % tx) * TILE_W)[None, :, None]
     overlap = (
-        (fmin[None, :, 0] <= (tile_x0[:, None] + TILE_W - 1))
-        & (fmax[None, :, 0] >= tile_x0[:, None])
-        & (fmin[None, :, 1] <= (tile_y0[:, None] + TILE_H - 1))
-        & (fmax[None, :, 1] >= tile_y0[:, None])
-        & valid[None, :]
-    )                                                # [T,F]
+        (fmin[:, None, :, 0] <= (tile_x0 + TILE_W - 1))
+        & (fmax[:, None, :, 0] >= tile_x0)
+        & (fmin[:, None, :, 1] <= (tile_y0 + TILE_H - 1))
+        & (fmax[:, None, :, 1] >= tile_y0)
+        & valid[:, None, :]
+    ).reshape(B * n_tiles, F)                        # [B*T,F]
     true_counts = overlap.sum(dim=1)
-    pairs = overlap.nonzero()                        # sorted by tile, then face
-    tile_of, face_of = pairs[:, 0], pairs[:, 1]
+    pairs = overlap.nonzero()                        # sorted by image and tile, then face
+    tile_of = pairs[:, 0]
     first = torch.cumsum(true_counts, 0) - true_counts
     pos = torch.arange(pairs.shape[0], device=dev) - first[tile_of]
-    face_list = face_of[pos < faces_per_tile]
+    kept = pairs[pos < faces_per_tile]               # one host read sizes it
+    face_list = kept[:, 1] + (kept[:, 0] // n_tiles) * F
     counts = true_counts.clamp(max=faces_per_tile)
-    tile_start = torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev)
+    tile_start = torch.zeros(B * n_tiles + 1, dtype=torch.int32, device=dev)
     tile_start[1:] = torch.cumsum(counts, 0)
-    bin_max = int(true_counts.max().item()) if n_tiles else 0
+    bin_max = (true_counts.reshape(B, n_tiles).amax(dim=1).tolist() if n_tiles
+               else [0] * B)
     return face_list, tile_start, bin_max
 
 
-def _untile(x: torch.Tensor, ty: int, tx: int) -> torch.Tensor:
-    """[T, TILE_H, TILE_W, ...] -> [H, W, ...]."""
+def _untile_images(x: torch.Tensor, ty: int, tx: int) -> torch.Tensor:
+    """[B*T, TILE_H, TILE_W, ...] -> [B, H, W, ...] (T = ty * tx)."""
     c = x.shape[3:]
-    x = x.reshape(ty, tx, TILE_H, TILE_W, *c)
-    x = x.permute(0, 2, 1, 3, *range(4, 4 + len(c)))
-    return x.reshape(ty * TILE_H, tx * TILE_W, *c)
+    x = x.reshape(-1, ty, tx, TILE_H, TILE_W, *c)
+    x = x.permute(0, 1, 3, 2, 4, *range(5, 5 + len(c)))
+    return x.reshape(-1, ty * TILE_H, tx * TILE_W, *c)
+
+
+def _untile(x: torch.Tensor, ty: int, tx: int) -> torch.Tensor:
+    """One image's [T, TILE_H, TILE_W, ...] -> [H, W, ...]."""
+    if x.shape[0] != ty * tx:
+        raise ValueError(f"{x.shape[0]} tiles are not one {ty}x{tx}-tile image")
+    return _untile_images(x, ty, tx)[0]
 
 
 # --------------------------------------------------------------------------- #
@@ -198,10 +223,13 @@ def raster_tiles_plain(geom: torch.Tensor, tile_start: torch.Tensor, meta: Raste
     """Plain PyTorch version of the kernel pair: same function, same tie-break.
 
     geom [9,P] f32, tile_start [T+1] -> (w1, w2 f32, slot int32, vis f32), each
-    [T,16,16]. Its gradient is autograd of this forward. It walks the lists
-    ``chunk`` slots at a time (by default as many as keep a step's intermediates
-    near 4M elements) and checkpoints each step, so no [faces, pixels]
-    intermediate outlives its step.
+    [T,16,16]; the T tiles are T / ``meta.tiles_per_image`` images in turn. Its
+    gradient is autograd of this forward. It walks the lists ``chunk`` slots at
+    a time (by default as many as keep a step's intermediates near 4M elements
+    an image) and checkpoints each step, so no [faces, pixels] intermediate
+    outlives its step; a step takes only the tiles whose lists reach it. The
+    default step depends on one image's tiles only, so each image of a batch
+    rounds as it does alone: bit for bit the same.
     """
     dev = geom.device
     T = tile_start.numel() - 1
@@ -210,10 +238,10 @@ def raster_tiles_plain(geom: torch.Tensor, tile_start: torch.Tensor, meta: Raste
     counts = (tile_start[1:] - tile_start[:-1]).long()
     kmax = int(counts.max().item()) if T else 0
     if chunk is None:
-        chunk = max(16, _PLAIN_STEP_ELEMS // max(T * _TILE_PIXELS, 1))
+        chunk = max(16, _PLAIN_STEP_ELEMS // max(meta.tiles_per_image * _TILE_PIXELS, 1))
     chunk = max(1, min(chunk, kmax))
 
-    tiles = torch.arange(T, device=dev)
+    tiles = torch.arange(T, device=dev) % meta.tiles_per_image   # within its image
     pix = torch.arange(_TILE_PIXELS, device=dev)
     uu = ((tiles % meta.tiles_x) * TILE_W)[:, None, None] + (pix % TILE_W)[None, None, :]
     vv = ((tiles // meta.tiles_x) * TILE_H)[:, None, None] + (pix // TILE_W)[None, None, :]
@@ -224,14 +252,18 @@ def raster_tiles_plain(geom: torch.Tensor, tile_start: torch.Tensor, meta: Raste
     best_w1 = torch.zeros((T, _TILE_PIXELS), dtype=geom.dtype, device=dev)
     best_w2 = torch.zeros_like(best_w1)
     vis = torch.ones_like(best_w1)
+    state = [best_z, best_s, best_w1, best_w2, vis]
 
     for slot0 in range(0, kmax, chunk):
+        # only the tiles with slots left: a finished list would add nothing
+        live = (counts > slot0).nonzero().squeeze(1)
         slots = slot0 + torch.arange(chunk, device=dev)
-        in_list = slots[None, :] < counts[:, None]                       # [T,C]
-        idx = (starts[:, None] + slots[None, :]).clamp(max=max(P - 1, 0))
-        best_z, best_s, best_w1, best_w2, vis = checkpoint(
-            _plain_chunk, geom, idx, in_list, uu, vv, best_z, best_s, best_w1, best_w2,
-            vis, slot0, meta, use_reentrant=False)
+        in_list = slots[None, :] < counts[live, None]                    # [T',C]
+        idx = (starts[live, None] + slots[None, :]).clamp(max=max(P - 1, 0))
+        new = checkpoint(_plain_chunk, geom, idx, in_list, uu[live], vv[live],
+                         *(x[live] for x in state), slot0, meta, use_reentrant=False)
+        state = [x.index_copy(0, live, y) for x, y in zip(state, new)]
+    best_z, best_s, best_w1, best_w2, vis = state
 
     shape = (T, TILE_H, TILE_W)
     return (best_w1.reshape(shape), best_w2.reshape(shape),
@@ -280,7 +312,13 @@ def raster_chunk_plan(tile_start: torch.Tensor, n_slots: int):
     return chunk_start, T + math.ceil(n_slots / RASTER_CHUNK)
 
 
-def _check_kernel_inputs(geom: torch.Tensor, tile_start: torch.Tensor) -> None:
+def _check_kernel_inputs(geom: torch.Tensor, tile_start: torch.Tensor,
+                         meta: RasterMeta) -> None:
+    T = tile_start.numel() - 1
+    if meta.tiles_per_image < 1 or T % meta.tiles_per_image or \
+            meta.tiles_per_image % meta.tiles_x:
+        raise ValueError(f"{T} tiles are not whole images of {meta.tiles_per_image} tiles "
+                         f"{meta.tiles_x} wide")
     if not geom.is_cuda or tile_start.device != geom.device:
         raise ValueError("rasterizer kernels take CUDA tensors on one device")
     if geom.dtype != torch.float32 or geom.dim() != 2 or geom.shape[0] != 9:
@@ -295,7 +333,7 @@ def raster_tiles_forward(geom: torch.Tensor, tile_start: torch.Tensor, meta: Ras
                          plan=None):
     """Launch the forward kernel: (w1, w2, slot, vis), each [T,16,16].
     ``plan`` is ``raster_chunk_plan(tile_start, P)``, made here if not given."""
-    _check_kernel_inputs(geom, tile_start)
+    _check_kernel_inputs(geom, tile_start, meta)
     T, P = tile_start.numel() - 1, geom.shape[1]
     if plan is None:
         plan = raster_chunk_plan(tile_start, P)
@@ -312,8 +350,8 @@ def raster_tiles_forward(geom: torch.Tensor, tile_start: torch.Tensor, meta: Ras
         code = lib.fmh_raster_fwd(
             geom.data_ptr(), tile_start.data_ptr(), chunk_start.data_ptr(), w1.data_ptr(),
             w2.data_ptr(), slot.data_ptr(), vis.data_ptr(), scratch.data_ptr(), T, P,
-            meta.tiles_x, bound, RASTER_CHUNK, 0.25 * meta.inv_sigma, meta.reach, meta.znear,
-            meta.zfar, torch.cuda.current_stream().cuda_stream)
+            meta.tiles_x, meta.tiles_per_image, bound, RASTER_CHUNK, 0.25 * meta.inv_sigma,
+            meta.reach, meta.znear, meta.zfar, torch.cuda.current_stream().cuda_stream)
     _kernels.check_launch(code, "raster_fwd")
     _kernels.LAUNCH_COUNTS["raster_fwd"] += 1
     return w1, w2, slot, vis
@@ -323,7 +361,7 @@ def raster_tiles_backward(geom, tile_start, slot, vis, gw1, gw2, gvis, meta: Ras
                           plan=None):
     """Launch the backward kernel: dgeom [9,P] (z rows are zero), every column
     written by one warp. ``plan`` as for ``raster_tiles_forward``."""
-    _check_kernel_inputs(geom, tile_start)
+    _check_kernel_inputs(geom, tile_start, meta)
     T, P = tile_start.numel() - 1, geom.shape[1]
     if plan is None:
         plan = raster_chunk_plan(tile_start, P)
@@ -338,8 +376,8 @@ def raster_tiles_backward(geom, tile_start, slot, vis, gw1, gw2, gvis, meta: Ras
         code = lib.fmh_raster_bwd(
             geom.data_ptr(), tile_start.data_ptr(), chunk_start.data_ptr(), slot.data_ptr(),
             vis.data_ptr(), grads[0].data_ptr(), grads[1].data_ptr(), grads[2].data_ptr(),
-            dgeom.data_ptr(), T, P, meta.tiles_x, bound, RASTER_CHUNK, 0.25 * meta.inv_sigma,
-            meta.reach, torch.cuda.current_stream().cuda_stream)
+            dgeom.data_ptr(), T, P, meta.tiles_x, meta.tiles_per_image, bound, RASTER_CHUNK,
+            0.25 * meta.inv_sigma, meta.reach, torch.cuda.current_stream().cuda_stream)
     _kernels.check_launch(code, "raster_bwd")
     _kernels.LAUNCH_COUNTS["raster_bwd"] += 1
     return dgeom
@@ -378,37 +416,58 @@ def raster_tiles(geom: torch.Tensor, tile_start: torch.Tensor, meta: RasterMeta)
 # --------------------------------------------------------------------------- #
 
 class TileInputs(NamedTuple):
+    """What the per-tile step takes: of one image, or of a batch of B (tri
+    [B,F,3,3], face ids b*F + f in face_list, B*T tiles, bin_max a list)."""
+
     tri: torch.Tensor         # [F,3,3] screen (u, v, depth) of every face corner
     face_list: torch.Tensor   # [P] face id of every packed (tile, slot)
     geom: torch.Tensor        # [9,P] the packed faces' screen coordinates
     tile_start: torch.Tensor  # [T+1] int32
     meta: RasterMeta
-    bin_max: int
+    bin_max: Union[int, List[int]]
+
+
+def _batched_faces(faces: torch.Tensor, B: int) -> torch.Tensor:
+    """Faces shared by the batch ([F,3]) or its own per image ([B,F,3]) -> [B,F,3]."""
+    return faces.expand(B, *faces.shape) if faces.dim() == 2 else faces
 
 
 def bin_and_pack(camera: GuidanceCamera, verts: torch.Tensor, faces: torch.Tensor,
                  face_mask: torch.Tensor, sigma_px: float, faces_per_tile: int,
                  fov_deg: FovLike = None) -> TileInputs:
     """Project, bin and pack: everything the per-tile step takes. A face is
-    drawn only if its mask is set and all three corners lie beyond znear."""
+    drawn only if its mask is set and all three corners lie beyond znear.
+
+    One image: verts [V,3], faces [F,3], face_mask [F], ``fov_deg`` a number,
+    a 0-d tensor or None. A batch: verts [B,V,3], faces [F,3] or [B,F,3],
+    face_mask [B,F], ``fov_deg`` None, a number or [B] (one per image)."""
     H, W = camera.height, camera.width
     if H % TILE_H or W % TILE_W:
         raise ValueError(f"image {H}x{W} is not a multiple of the {TILE_H}x{TILE_W} tile")
-    tri = take_rows(camera.project(verts, fov_deg=fov_deg), faces)   # [F,3,3] (u,v,z)
+    batched = verts.dim() == 3
+    if not batched:
+        verts, faces, face_mask = verts[None], faces[None], face_mask[None]
+    B = verts.shape[0]
+    tri = take_image_rows(camera.project(verts, fov_deg=fov_deg),
+                      _batched_faces(faces, B))               # [B,F,3,3] (u,v,z)
     valid = (face_mask > 0) & (tri[..., 2] > camera.znear).all(dim=-1)
     face_list, tile_start, bin_max = _bin_faces(tri, valid, H, W, faces_per_tile, sigma_px)
     geom = take_rows(tri.reshape(-1, 9).float(), face_list).t().contiguous()   # [9,P]
-    meta = RasterMeta(tiles_x=W // TILE_W, inv_sigma=1.0 / max(sigma_px, 1e-6),
-                      znear=float(camera.znear), zfar=float(camera.zfar))
+    tiles_x = W // TILE_W
+    meta = RasterMeta(tiles_x=tiles_x, tiles_per_image=tiles_x * (H // TILE_H),
+                      inv_sigma=1.0 / max(sigma_px, 1e-6), znear=float(camera.znear),
+                      zfar=float(camera.zfar))
+    if not batched:
+        return TileInputs(tri[0], face_list, geom, tile_start, meta, bin_max[0])
     return TileInputs(tri, face_list, geom, tile_start, meta, bin_max)
 
 
 def rasterize(
     camera: GuidanceCamera,
-    verts: torch.Tensor,         # [V,3] world (GL convention)
-    faces: torch.Tensor,         # [F,3] integer
-    vert_normals: torch.Tensor,  # [V,3]
-    face_mask: torch.Tensor,     # [F]
+    verts: torch.Tensor,         # [V,3] world (GL convention), or [B,V,3]
+    faces: torch.Tensor,         # [F,3] integer, or [B,F,3]
+    vert_normals: torch.Tensor,  # [V,3], or [B,V,3]
+    face_mask: torch.Tensor,     # [F], or [B,F]
     sigma_px: float = 0.7,
     faces_per_tile: int = 4096,
     fov_deg: FovLike = None,
@@ -417,16 +476,26 @@ def rasterize(
 ) -> RasterOut:
     """Render depth, interpolated normals, soft silhouette and winner ids.
 
+    Given verts [B,V,3], it renders the B images in one pass (one launch of
+    each kernel) and every output leads with B; ``fov_deg`` may then hold one
+    field of view per image. Each image's render is the one it gets alone.
     ``force_plain`` routes the per-tile step through the plain version even on
     a CUDA tensor; it exists to hold the kernels against it.
     """
     dev = resolve_device(device)
     verts, vert_normals = verts.to(dev), vert_normals.to(dev)
     faces, face_mask = faces.to(dev).long(), face_mask.to(dev)
+    batched = verts.dim() == 3
+    if not batched:
+        verts, faces, vert_normals, face_mask = (
+            verts[None], faces[None], vert_normals[None], face_mask[None])
+    B = verts.shape[0]
+    faces = _batched_faces(faces, B)
     ty, tx = camera.height // TILE_H, camera.width // TILE_W
     tri, face_list, geom, tile_start, meta, bin_max = bin_and_pack(
         camera, verts, faces, face_mask, sigma_px, faces_per_tile, fov_deg)
-    tri_n = take_rows(vert_normals, faces)                    # [F,3,3]
+    F = tri.shape[1]
+    tri_n = take_image_rows(vert_normals, faces)                   # [B,F,3,3]
     if force_plain:
         w1, w2, slot, vis = raster_tiles_plain(geom, tile_start, meta)
     else:
@@ -437,8 +506,8 @@ def rasterize(
         # a pixel without a winner gathers its tile's first face (masked out below)
         pos = tile_start[:-1].long()[:, None, None] + slot.clamp(min=0).long()
         fid_safe = face_list[pos.clamp(max=face_list.numel() - 1)]
-        corner = take_rows(tri, fid_safe)                     # [T,t,t,3,3]
-        nrm = take_rows(tri_n, fid_safe)
+        corner = take_rows(tri.reshape(B * F, 3, 3), fid_safe)   # [B*T,t,t,3,3]
+        nrm = take_rows(tri_n.reshape(B * F, 3, 3), fid_safe)
         w0 = 1.0 - w1 - w2
         z = w0 * corner[..., 0, 2] + w1 * corner[..., 1, 2] + w2 * corner[..., 2, 2]
         normal = (w0[..., None] * nrm[..., 0, :] + w1[..., None] * nrm[..., 1, :]
@@ -447,7 +516,10 @@ def rasterize(
         fid_safe = torch.zeros_like(slot, dtype=torch.long)
         z = torch.zeros_like(w1)
         normal = torch.zeros((*w1.shape, 3), dtype=w1.dtype, device=dev)
-    fid = torch.where(mask, fid_safe, torch.full_like(fid_safe, -1))
+    # face ids within each image
+    image_of = image_rows(slot.shape[0] // meta.tiles_per_image, meta.tiles_per_image,
+                          dev)[:, None, None]
+    fid = torch.where(mask, fid_safe - image_of * F, torch.full_like(fid_safe, -1))
     zbuf = torch.where(mask, z, torch.full_like(z, -1.0))
     normal = torch.where(mask[..., None], normal, torch.zeros_like(normal))
 
@@ -456,9 +528,13 @@ def rasterize(
     # 1 while the soft product keeps the boundary gradients.
     alpha = torch.maximum(mask.to(vis.dtype), 1.0 - vis)
 
-    return RasterOut(zbuf=_untile(zbuf, ty, tx), normal=_untile(normal, ty, tx),
-                     face_id=_untile(fid, ty, tx), alpha=_untile(alpha, ty, tx),
-                     bin_max=bin_max, bin_capacity=int(faces_per_tile))
+    out = RasterOut(zbuf=_untile_images(zbuf, ty, tx), normal=_untile_images(normal, ty, tx),
+                    face_id=_untile_images(fid, ty, tx), alpha=_untile_images(alpha, ty, tx),
+                    bin_max=bin_max, bin_capacity=int(faces_per_tile))
+    if batched:
+        return out
+    return out._replace(zbuf=out.zbuf[0], normal=out.normal[0], face_id=out.face_id[0],
+                        alpha=out.alpha[0], bin_max=bin_max[0])
 
 
 def render_normal_and_disparity(
@@ -474,24 +550,34 @@ def render_normal_and_disparity(
 ) -> Tuple[torch.Tensor, torch.Tensor, RasterOut]:
     """Normal map in [0,1] + normalized disparity: empty depth -> 10,
     disparity = 1/(z+1e-6), both maps min/max-normalized over the image;
-    background normals 0.
+    background normals 0. A batch (verts [B,V,3], see ``rasterize``) is
+    normalized image by image, each image's numbers and gradients those it
+    gets alone.
     """
     out = rasterize(camera, verts, faces, vert_normals, face_mask, sigma_px=sigma_px,
                     faces_per_tile=faces_per_tile, fov_deg=fov_deg, device=device)
-    fg = (out.face_id >= 0)[..., None]
+    batched = out.zbuf.dim() == 3
+    zbuf = out.zbuf if batched else out.zbuf[None]             # [B,H,W]
+    n = out.normal if batched else out.normal[None]            # [B,H,W,3]
+    fg = ((out.face_id if batched else out.face_id[None]) >= 0)[..., None]
 
-    n = out.normal
-    # normalize over the foreground; the background stays 0
+    # normalize over each image's foreground; the background stays 0
     inf = torch.full_like(n, float("inf"))
-    nmin = torch.where(fg, n, inf).min()
-    nmax = torch.where(fg, n, -inf).max()
+    nmin = torch.where(fg, n, inf).amin(dim=(1, 2, 3))
+    nmax = torch.where(fg, n, -inf).amax(dim=(1, 2, 3))
     nmin = torch.where(torch.isfinite(nmin), nmin, torch.zeros_like(nmin))
     nmax = torch.where(torch.isfinite(nmax), nmax, torch.ones_like(nmax))
+    depth = torch.where(zbuf < 0, torch.full_like(zbuf, 10.0), zbuf)
+    disp = 1.0 / (depth + 1e-6)
+    # each image's four bounds gathered onto each entry of its normal map, so
+    # that their gradients sum over the image's own pixels (ops/indexing)
+    g = repeat_per_image(torch.stack([nmin, nmax, disp.amin(dim=(1, 2)), disp.amax(dim=(1, 2))],
+                                     dim=1), n[0].numel()).reshape(*n.shape, 4)
+    nmin, nmax, dmin, dmax = g.unbind(-1)
     n01 = (n - nmin) / (nmax - nmin + 1e-6)
     n01 = torch.where(fg, n01, torch.zeros_like(n01))
-
-    depth = torch.where(out.zbuf < 0, torch.full_like(out.zbuf, 10.0), out.zbuf)
-    disp = 1.0 / (depth + 1e-6)
-    disp01 = (disp - disp.min()) / (disp.max() - disp.min() + 1e-6)
-
-    return n01, disp01, out
+    dmin, dmax = dmin[..., 0], dmax[..., 0]
+    disp01 = (disp - dmin) / (dmax - dmin + 1e-6)
+    if batched:
+        return n01, disp01, out
+    return n01[0], disp01[0], out

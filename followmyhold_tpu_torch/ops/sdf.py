@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from followmyhold_tpu_torch.ops.grid import generate_grid
-from followmyhold_tpu_torch.ops.indexing import take_rows
+from followmyhold_tpu_torch.ops.indexing import take_image_rows, take_rows
 
 
 def point_triangle_sqdist(points: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
@@ -76,13 +76,17 @@ def winding_number(points: torch.Tensor, verts: torch.Tensor, faces: torch.Tenso
                    face_mask: Optional[torch.Tensor] = None,
                    chunk: int = 4096) -> torch.Tensor:
     """Generalized winding number of [N,3] points with respect to the mesh
-    -> [N]: ~0 outside, ~1 inside a consistently wound closed mesh."""
-    tri = take_rows(verts, faces)                     # [F,3,3]
+    -> [N]: ~0 outside, ~1 inside a consistently wound closed mesh. A batch
+    (points [B,N,3], verts [B,V,3], faces [B,F,3], face_mask [B,F]) -> [B,N],
+    each image's points against its own mesh."""
+    batched = points.dim() == 3
+    tri = take_image_rows(verts, faces) if batched else take_rows(verts, faces)   # [(B,)F,3,3]
     out = []
-    for p in points.split(chunk):
-        a = tri[:, 0][None] - p[:, None]              # [n,F,3]
-        b = tri[:, 1][None] - p[:, None]
-        c = tri[:, 2][None] - p[:, None]
+    for p in points.split(chunk, dim=-2):
+        p = p[..., :, None, :]                        # [(B,)n,1,3]
+        a = tri[..., None, :, 0, :] - p               # [(B,)n,F,3]
+        b = tri[..., None, :, 1, :] - p
+        c = tri[..., None, :, 2, :] - p
         la = torch.linalg.norm(a, dim=-1)
         lb = torch.linalg.norm(b, dim=-1)
         lc = torch.linalg.norm(c, dim=-1)
@@ -93,9 +97,9 @@ def winding_number(points: torch.Tensor, verts: torch.Tensor, faces: torch.Tenso
                  + torch.sum(c * a, dim=-1) * lb)
         omega = 2.0 * torch.atan2(det, denom)         # solid angle per face
         if face_mask is not None:
-            omega = omega * face_mask[None].to(omega.dtype)
+            omega = omega * face_mask[..., None, :].to(omega.dtype)
         out.append(torch.sum(omega, dim=-1) / (4.0 * math.pi))
-    return torch.cat(out)
+    return torch.cat(out, dim=-1)
 
 
 def mesh_to_sdf(points: torch.Tensor, verts: torch.Tensor, faces: torch.Tensor,

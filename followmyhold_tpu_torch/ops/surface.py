@@ -28,7 +28,13 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from followmyhold_tpu_torch.ops.indexing import scatter_rows_add, take_rows
+from followmyhold_tpu_torch.ops.indexing import (
+    first_per_image,
+    image_offsets,
+    scatter_rows_add,
+    take_image_rows,
+    take_rows,
+)
 from followmyhold_tpu_torch.ops.safe import safe_normalize
 
 # Cube corners: id = 4*dx + 2*dy + dz  ->  (dx, dy, dz)
@@ -139,7 +145,8 @@ _TRI_COUNTS = np.count_nonzero(_TRI_TABLE[:, :, :, 0] >= 0, axis=2)  # [6,16]
 
 
 class PaddedMesh(NamedTuple):
-    """Fixed-capacity mesh."""
+    """Fixed-capacity mesh; a batch's leaves lead with B (faces index each
+    image's own verts)."""
 
     verts: torch.Tensor       # [V_max, 3] float32; padded entries repeat verts[0]
     faces: torch.Tensor       # [F_max, 3] int64; padded faces = (0,0,0)
@@ -156,55 +163,67 @@ class PaddedMesh(NamedTuple):
 
 
 def _face_cross(mesh: PaddedMesh) -> torch.Tensor:
-    tri = take_rows(mesh.verts, mesh.faces)
-    return torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    batched = mesh.verts.dim() == 3
+    tri = (take_image_rows if batched else take_rows)(mesh.verts, mesh.faces)
+    return torch.linalg.cross(tri[..., 1, :] - tri[..., 0, :], tri[..., 2, :] - tri[..., 0, :])
 
 
 def face_normals(mesh: PaddedMesh, normalize: bool = True) -> torch.Tensor:
     n = _face_cross(mesh)
     if normalize:
         n = safe_normalize(n)
-    return n * mesh.face_mask[:, None]
+    return n * mesh.face_mask[..., None]
 
 
 def vertex_normals(mesh: PaddedMesh) -> torch.Tensor:
     """Area-weighted vertex normals via a deterministic scatter-add
-    (differentiable)."""
-    fn = _face_cross(mesh) * mesh.face_mask[:, None]
-    # corner-major, [3F]: a vertex sums its faces' normals as corner 0 of each,
-    # then corner 1, then corner 2, in face order (the reference's order)
-    vn = scatter_rows_add(mesh.verts.shape[0], mesh.faces.t().reshape(-1), fn.repeat(3, 1))
-    return safe_normalize(vn)
+    (differentiable); of each image of a batch on its own."""
+    fn = _face_cross(mesh) * mesh.face_mask[..., None]
+    if mesh.verts.dim() == 2:
+        fn, faces, verts = fn[None], mesh.faces[None], mesh.verts[None]
+    else:
+        faces, verts = mesh.faces, mesh.verts
+    B, V = verts.shape[:2]
+    # corner-major within each image, [3F]: a vertex sums its faces' normals as
+    # corner 0 of each, then corner 1, then corner 2, in face order (the
+    # reference's order); the images' rows follow one another
+    index = faces + image_offsets(B, V, faces.device)[:, None, None]
+    vn = scatter_rows_add(B * V, index.transpose(1, 2).reshape(-1),
+                          fn.repeat(1, 3, 1).reshape(-1, 3))
+    return safe_normalize(vn.reshape(mesh.verts.shape))
 
 
 def mesh_edges(faces: torch.Tensor, face_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """[F,3] faces -> [3F,2] edges + mask (with duplicates; fine for the
-    edge-length regularizer)."""
-    e = torch.cat([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]], dim=0)
-    m = torch.cat([face_mask, face_mask, face_mask], dim=0)
+    edge-length regularizer); [B,F,3] -> [B,3F,2]."""
+    e = torch.cat([faces[..., [0, 1]], faces[..., [1, 2]], faces[..., [2, 0]]], dim=-2)
+    m = torch.cat([face_mask, face_mask, face_mask], dim=-1)
     return e, m
 
 
 def _signed_grid(sdf_grid: torch.Tensor, resolution: int, iso: float) -> torch.Tensor:
+    """[B,(R+1)^3] -> [B,n,n,n] float32 minus the iso level."""
     n = resolution + 1
-    return sdf_grid.reshape(n, n, n).float() - iso
+    return sdf_grid.reshape(-1, n, n, n).float() - iso
 
 
 def _active_edges(s: torch.Tensor) -> torch.Tensor:
-    """[7,n,n,n] bool: the edge from each grid vertex along each of the 7
+    """[B,7,n,n,n] bool: the edge from each grid vertex along each of the 7
     directions changes sign (0 is its own sign). Edges that leave the grid meet
     a 1e9 border and are excluded."""
-    n = s.shape[0]
+    n = s.shape[1]
     sp = torch.nn.functional.pad(s, (0, 1, 0, 1, 0, 1), value=1e9)
-    ends = torch.stack([sp[d[0]:d[0] + n, d[1]:d[1] + n, d[2]:d[2] + n] for d in _DIRS])
-    return (torch.sign(s)[None] != torch.sign(ends)) & (ends.abs() < 1e8)
+    ends = torch.stack([sp[:, d[0]:d[0] + n, d[1]:d[1] + n, d[2]:d[2] + n] for d in _DIRS],
+                       dim=1)
+    return (torch.sign(s)[:, None] != torch.sign(ends)) & (ends.abs() < 1e8)
 
 
 def _tet_cases(s: torch.Tensor, resolution: int):
-    """Per tet, the [C] case index (bit v set where tet corner v is inside)."""
+    """Per tet, the [B,C] case index (bit v set where tet corner v is inside)."""
     r = resolution
     ins = (s < 0).long()
-    corner = [ins[c[0]:c[0] + r, c[1]:c[1] + r, c[2]:c[2] + r].reshape(-1) for c in _CORNERS]
+    corner = [ins[:, c[0]:c[0] + r, c[1]:c[1] + r, c[2]:c[2] + r].reshape(s.shape[0], -1)
+              for c in _CORNERS]
     return [corner[tet[0]] + 2 * corner[tet[1]] + 4 * corner[tet[2]] + 8 * corner[tet[3]]
             for tet in _TETS]
 
@@ -222,11 +241,15 @@ def marching_tets(
 
     sdf convention: NEGATIVE inside. Gradients flow to sdf_grid through the
     vertex interpolation weights. Geometry beyond max_verts / max_faces is
-    dropped (see surface_capacity_counts).
+    dropped (see surface_capacity_counts). A batch of grids [B,(R+1)^3] gives
+    a mesh whose leaves lead with B, each image's mesh (truncated at the
+    capacities on its own) the one it gets alone.
     """
+    batched = sdf_grid.dim() == 2
     n = resolution + 1
     dev = sdf_grid.device
-    s = _signed_grid(sdf_grid, resolution, iso)
+    s = _signed_grid(sdf_grid, resolution, iso)                         # [B,n,n,n]
+    B = s.shape[0]
     bbox_min = torch.as_tensor(bbox_min, dtype=torch.float32, device=dev)
     bbox_max = torch.as_tensor(bbox_max, dtype=torch.float32, device=dev)
     step = (bbox_max - bbox_min) / resolution
@@ -234,35 +257,36 @@ def marching_tets(
 
     # --- 1. active global edges -> vertex slots, ascending key order ---
     # key = vertex_index * 7 + dir_code, vertex_index = (i*n + j)*n + k
-    active = _active_edges(s.detach())
-    keys = active.permute(1, 2, 3, 0).reshape(-1).nonzero().squeeze(1)[:max_verts]
-    n_active = keys.numel()
-    vert_mask = (torch.arange(max_verts, device=dev) < n_active).float()
-    edge_ids = torch.full((max_verts,), n_keys - 1, dtype=torch.long, device=dev)
-    edge_ids[:n_active] = keys
+    active = _active_edges(s.detach()).permute(0, 2, 3, 4, 1).reshape(B, n_keys)
+    img, keys, slot, n_active = first_per_image(active, max_verts)
+    vert_mask = (torch.arange(max_verts, device=dev)[None] < n_active[:, None]).float()
+    # a key beyond the capacity writes the extra column, which is dropped
+    edge_ids = torch.full((B, max_verts + 1), n_keys - 1, dtype=torch.long, device=dev)
+    edge_ids[img, slot] = keys
+    edge_ids = edge_ids[:, :max_verts]
 
     # keys beyond the capacity keep slot 0, as in the reference
-    slot_of_key = torch.zeros(n_keys, dtype=torch.long, device=dev)
-    slot_of_key[keys] = torch.arange(n_active, device=dev)
+    slot_of_key = torch.zeros((B, n_keys), dtype=torch.long, device=dev)
+    slot_of_key[img, keys] = torch.where(slot < max_verts, slot, torch.zeros_like(slot))
 
     vid = edge_ids // 7
     dcode = edge_ids % 7
-    g1 = torch.stack([vid // (n * n), (vid // n) % n, vid % n], dim=-1)
+    g1 = torch.stack([vid // (n * n), (vid // n) % n, vid % n], dim=-1)    # [B,Vmax,3]
     g2 = g1 + torch.as_tensor(_DIRS, device=dev)[dcode]
     g2c = g2.clamp(0, n - 1)
     # through take_rows: padded slots all gather the last key's vertex, and an
     # advanced-indexing gather's backward serialises such duplicates
-    s_flat = s.reshape(-1)
-    s1 = take_rows(s_flat, (g1[:, 0] * n + g1[:, 1]) * n + g1[:, 2])
-    s2 = take_rows(s_flat, (g2c[:, 0] * n + g2c[:, 1]) * n + g2c[:, 2])
+    s_flat = s.reshape(B, -1)
+    s1 = take_image_rows(s_flat, (g1[..., 0] * n + g1[..., 1]) * n + g1[..., 2])
+    s2 = take_image_rows(s_flat, (g2c[..., 0] * n + g2c[..., 1]) * n + g2c[..., 2])
     denom = s1 - s2
     t = s1 / torch.where(denom.abs() < 1e-12, torch.full_like(denom, 1e-12), denom)
     t = t.clamp(0.0, 1.0)
     p1 = bbox_min + g1.float() * step
     p2 = bbox_min + g2.float() * step
-    verts = p1 + t[:, None] * (p2 - p1)
+    verts = p1 + t[..., None] * (p2 - p1)
     # padded verts collapse to verts[0] so the bbox stays tight
-    verts = torch.where(vert_mask[:, None] > 0, verts, verts[0])
+    verts = torch.where(vert_mask[..., None] > 0, verts, verts[:, :1])
 
     # --- 2. faces from tets: gather the per-case tables ---
     r = resolution
@@ -274,21 +298,22 @@ def marching_tets(
 
     all_faces, all_valid = [], []
     for tnum, case in enumerate(_tet_cases(s.detach(), resolution)):
-        od = offs_dir[tnum][case]                                        # [C,6,4]
+        od = offs_dir[tnum][case]                                        # [B,C,6,4]
         g = cell_ijk + od[..., :3]
         key = ((g[..., 0] * n + g[..., 1]) * n + g[..., 2]) * 7 + od[..., 3]
-        all_faces.append(slot_of_key[key].reshape(-1, 3))                # [2C,3]
-        all_valid.append(tri_valid[tnum][case].reshape(-1))              # [2C]
-    faces_cand = torch.cat(all_faces)
-    valid_cand = torch.cat(all_valid)
+        all_faces.append(slot_of_key.gather(1, key.reshape(B, -1)).reshape(B, -1, 3))
+        all_valid.append(tri_valid[tnum][case].reshape(B, -1))          # [B,2C]
+    faces_cand = torch.cat(all_faces, dim=1)
+    valid_cand = torch.cat(all_valid, dim=1)
 
-    face_ids = valid_cand.nonzero().squeeze(1)[:max_faces]
-    n_faces = face_ids.numel()
-    face_mask = (torch.arange(max_faces, device=dev) < n_faces).float()
-    faces = torch.zeros((max_faces, 3), dtype=torch.long, device=dev)
-    faces[:n_faces] = faces_cand[face_ids]
+    img, face_ids, slot, n_faces = first_per_image(valid_cand, max_faces)
+    face_mask = (torch.arange(max_faces, device=dev)[None] < n_faces[:, None]).float()
+    faces = torch.zeros((B, max_faces + 1, 3), dtype=torch.long, device=dev)
+    faces[img, slot] = faces_cand[img, face_ids]
+    faces = faces[:, :max_faces]
 
-    return PaddedMesh(verts=verts, faces=faces, vert_mask=vert_mask, face_mask=face_mask)
+    mesh = PaddedMesh(verts=verts, faces=faces, vert_mask=vert_mask, face_mask=face_mask)
+    return mesh if batched else PaddedMesh(*(x[0] for x in mesh))
 
 
 def surface_capacity_counts(sdf_grid: torch.Tensor, resolution: int,

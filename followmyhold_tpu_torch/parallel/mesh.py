@@ -57,9 +57,12 @@ def _world_size() -> Optional[int]:
 def parse_mesh_shape(spec: str, num_devices: Optional[int] = None) -> Dict[str, int]:
     """'dp=4,tp=2' -> {'dp': 4, 'tp': 2}; one axis may be -1 (= fill).
     ``num_devices`` defaults to the world size of the process group, or to the
-    visible cards where there is none."""
+    visible cards where there is none. A count below 1 (a host without a card
+    and without a process group) raises, as does a fill that would come out 0."""
     if num_devices is None:
         num_devices = _world_size() or torch.cuda.device_count()
+    if num_devices < 1:
+        raise ValueError(f"no devices to lay a mesh over ({num_devices} counted)")
     axes: Dict[str, int] = {}
     for part in spec.split(","):
         part = part.strip()
@@ -74,9 +77,13 @@ def parse_mesh_shape(spec: str, num_devices: Optional[int] = None) -> Dict[str, 
         raise ValueError("Only one mesh axis may be -1")
     fixed = int(np.prod([v for v in axes.values() if v != -1])) if axes else 1
     if fills:
-        if num_devices % fixed:
+        if fixed > 0 and num_devices % fixed:
             raise ValueError(f"{num_devices} devices not divisible by {fixed}")
-        axes[fills[0]] = num_devices // fixed
+        fill = num_devices // fixed if fixed > 0 else 0
+        if fill < 1:
+            raise ValueError(f"mesh axis {fills[0]!r} would be filled with {fill} devices "
+                             f"({num_devices} devices over the other axes' {fixed})")
+        axes[fills[0]] = fill
     return axes
 
 

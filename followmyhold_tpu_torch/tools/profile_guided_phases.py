@@ -5,7 +5,9 @@
 Runs the guided sampler's object phase (1.5) and joint phase (2) on the
 synthetic scene at 512x512 with the full-width ShapeVAE (seeded random
 weights; the DiT is not called by these phases, so it is the tiny one). For
-each phase it prints the wall time per iteration, then the same phase under
+each phase it prints the wall time per iteration of three runs (the host's
+spread between them; the first one's in the summary line) and the host syncs
+per iteration, then the same phase under
 torch.profiler: device time per iteration over wall time (the card's busy
 share), the kernels that took the most device time, the CUDA kernels launched
 per iteration and the launches of the port's own kernels per iteration.
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import time
+import warnings
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -27,13 +30,32 @@ from followmyhold_tpu_torch.ops import _kernels
 from followmyhold_tpu_torch.tools._scene import hand_scene
 
 
+def _count_syncs(fn) -> int:
+    """How often fn synchronises the host with the device (torch's sync debug
+    mode warns once per synchronising call)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
 def _profile_phase(name: str, run, iters: int) -> None:
     run()                                   # build + warm up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / iters * 1e3
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / iters * 1e3)
+    wall_ms = walls[0]
+    print(f"{name}: wall ms per iteration of each run: {walls}; host syncs per iteration: "
+          f"{_count_syncs(run) / iters:.1f}")
     _kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()

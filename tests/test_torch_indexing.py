@@ -90,7 +90,8 @@ def test_take_rows_takes_int32_indices():
 def test_vertex_normals_match_per_corner_index_add():
     """vertex_normals sums each face's normal into its three corners through
     scatter_rows_add, corner-major as the three index_adds it replaced did:
-    on the CPU, where those add in order, the bits are the same."""
+    on the CPU, where those add in order (in float64, rounded once, as
+    scatter_rows_add's plain version does), the bits are the same."""
     rng = np.random.default_rng(6)
     verts = torch.from_numpy(rng.normal(size=(30, 3)).astype(np.float32))
     faces = torch.from_numpy(rng.integers(0, 30, size=(80, 3)))
@@ -99,10 +100,10 @@ def test_vertex_normals_match_per_corner_index_add():
     got = vertex_normals(mesh)
     tri = verts[faces]
     fn = torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]) * mask[:, None]
-    vn = torch.zeros_like(verts)
+    vn = torch.zeros_like(verts, dtype=torch.float64)
     for k in range(3):
-        vn = vn.index_add(0, faces[:, k], fn)
-    assert torch.equal(got, safe_normalize(vn))
+        vn = vn.index_add(0, faces[:, k], fn.double())
+    assert torch.equal(got, safe_normalize(vn.float()))
 
 
 def test_cpu_tensors_take_the_plain_version_and_the_kernel_wrapper_refuses_them():
