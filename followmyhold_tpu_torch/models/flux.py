@@ -44,6 +44,7 @@ from torch import nn
 from followmyhold_tpu_torch.models.hunyuan import _merge_heads, _split_heads
 from followmyhold_tpu_torch.ops.attention import multi_head_attention
 from followmyhold_tpu_torch.ops.norms import group_norm_f32
+from followmyhold_tpu_torch.utils.profiling import anchor, span
 
 _LN_EPS = 1e-6
 
@@ -504,33 +505,42 @@ def kontext_edit(
     float32 in [0, 1]. Flow-matching Euler in float32 latents with the dev
     model's guidance embedding (no CFG double batch). The noise is
     ``initial_noise`` (the packed latents' shape), or drawn from
-    ``generator``. No host synchronisation inside the loop."""
+    ``generator``. No host synchronisation inside the loop. Spans
+    (``utils.profiling``): ``flux.vae_encode`` (the encode, packing, ids and
+    noise), ``flux.step`` for each step (the transformer and the Euler
+    update), ``flux.vae_decode`` (unpacking, the decode and the clamp); the
+    ids' synchronous copy anchors the call's device clock."""
     dev = image_rgb01.device
     B = image_rgb01.shape[0]
-    z_ctx = vae.encode(image_rgb01 * 2.0 - 1.0)
-    h, w = z_ctx.shape[1:3]
-    ctx_tokens = pack_latents(z_ctx)
-    n_img = (h // 2) * (w // 2)
+    with span("flux.vae_encode"):
+        z_ctx = vae.encode(image_rgb01 * 2.0 - 1.0)
+        h, w = z_ctx.shape[1:3]
+        ctx_tokens = pack_latents(z_ctx)
+        n_img = (h // 2) * (w // 2)
 
-    img_ids = torch.from_numpy(np.concatenate(
-        [latent_ids(h // 2, w // 2, 0), latent_ids(h // 2, w // 2, 1)])).to(dev)
-    txt_ids = torch.zeros((t5_states.shape[1], 3), dtype=torch.float32, device=dev)
-    if initial_noise is not None:
-        lat = (initial_noise if isinstance(initial_noise, torch.Tensor)
-               else torch.from_numpy(np.array(initial_noise, np.float32)))
-        lat = lat.to(device=dev, dtype=torch.float32)
-        if lat.shape != ctx_tokens.shape:
-            raise ValueError(f"initial_noise {tuple(lat.shape)} does not match the packed "
-                             f"latents {tuple(ctx_tokens.shape)}")
-    else:
-        lat = torch.randn(ctx_tokens.shape, generator=generator, dtype=torch.float32, device=dev)
+        img_ids = torch.from_numpy(np.concatenate(
+            [latent_ids(h // 2, w // 2, 0), latent_ids(h // 2, w // 2, 1)])).to(dev)
+        anchor()            # the copy from pageable memory waited for the card's queue
+        txt_ids = torch.zeros((t5_states.shape[1], 3), dtype=torch.float32, device=dev)
+        if initial_noise is not None:
+            lat = (initial_noise if isinstance(initial_noise, torch.Tensor)
+                   else torch.from_numpy(np.array(initial_noise, np.float32)))
+            lat = lat.to(device=dev, dtype=torch.float32)
+            if lat.shape != ctx_tokens.shape:
+                raise ValueError(f"initial_noise {tuple(lat.shape)} does not match the packed "
+                                 f"latents {tuple(ctx_tokens.shape)}")
+        else:
+            lat = torch.randn(ctx_tokens.shape, generator=generator, dtype=torch.float32,
+                              device=dev)
 
-    sigmas = kontext_sigmas(num_steps, n_img)
-    g = torch.full((B,), guidance, dtype=torch.float32, device=dev)
+        sigmas = kontext_sigmas(num_steps, n_img)
+        g = torch.full((B,), guidance, dtype=torch.float32, device=dev)
     for i in range(num_steps):
-        t = torch.full((B,), float(sigmas[i]), dtype=torch.float32, device=dev)
-        v = transformer(torch.cat([lat, ctx_tokens], dim=1), t5_states, pooled, t,
-                        img_ids, txt_ids, g)[:, :n_img]
-        lat = lat + float(sigmas[i + 1] - sigmas[i]) * v
-    out = vae.decode(unpack_latents(lat, h, w))
-    return torch.clamp(out * 0.5 + 0.5, 0.0, 1.0)
+        with span("flux.step"):
+            t = torch.full((B,), float(sigmas[i]), dtype=torch.float32, device=dev)
+            v = transformer(torch.cat([lat, ctx_tokens], dim=1), t5_states, pooled, t,
+                            img_ids, txt_ids, g)[:, :n_img]
+            lat = lat + float(sigmas[i + 1] - sigmas[i]) * v
+    with span("flux.vae_decode"):
+        out = vae.decode(unpack_latents(lat, h, w))
+        return torch.clamp(out * 0.5 + 0.5, 0.0, 1.0)

@@ -54,6 +54,7 @@ from followmyhold_tpu_torch.preprocess.gemini_objname import read_names
 from followmyhold_tpu_torch.utils.artifacts import parse_cropped_hoi_name
 from followmyhold_tpu_torch.utils.device import DeviceLike, resolve_device
 from followmyhold_tpu_torch.utils.params import has_params, init_random_, load_params
+from followmyhold_tpu_torch.utils.profiling import anchor, span
 from followmyhold_tpu_torch.utils.prng import SEED_INPAINT, stage_generator
 
 
@@ -119,18 +120,27 @@ class FluxKontextInpainter:
         """[H,W,3] uint8 -> [H,W,3] uint8. The noise is ``initial_noise`` (the
         packed latents' shape) or the stage's: one generator of
         (SEED_INPAINT, "inpaint"), the same for every image, as the reference
-        draws it from one key."""
-        dev = self.device
-        clip_ids, t5_ids = tokenize_flux_prompt(prompt, self.clip.cfg, self.t5.cfg)
-        with torch.no_grad():
-            t5_states = self.t5(torch.from_numpy(t5_ids).to(dev))
-            _, pooled = self.clip(torch.from_numpy(clip_ids).to(dev))
-            img = torch.from_numpy(np.asarray(image_rgb, np.float32))[None].to(dev) / 255.0
-            gen = (stage_generator(SEED_INPAINT, "inpaint", device=dev)
-                   if initial_noise is None else None)
-            out = kontext_edit(self.transformer, self.vae, t5_states, pooled, img, gen,
-                               num_steps=28, guidance=2.5, initial_noise=initial_noise)
-        return (out[0].cpu().numpy() * 255).astype(np.uint8)
+        draws it from one key. Spans (``utils.profiling``): the whole call
+        (``inpaint.call``), ``inpaint.tokenize``, ``inpaint.text`` (T5 and
+        CLIP), ``kontext_edit``'s, and ``inpaint.readback``, where the host
+        waits for the card, so that it anchors the call's device clock."""
+        with span("inpaint.call"):
+            dev = self.device
+            with span("inpaint.tokenize"):
+                clip_ids, t5_ids = tokenize_flux_prompt(prompt, self.clip.cfg, self.t5.cfg)
+            with torch.no_grad():
+                with span("inpaint.text"):
+                    t5_states = self.t5(torch.from_numpy(t5_ids).to(dev))
+                    _, pooled = self.clip(torch.from_numpy(clip_ids).to(dev))
+                img = torch.from_numpy(np.asarray(image_rgb, np.float32))[None].to(dev) / 255.0
+                gen = (stage_generator(SEED_INPAINT, "inpaint", device=dev)
+                       if initial_noise is None else None)
+                out = kontext_edit(self.transformer, self.vae, t5_states, pooled, img, gen,
+                                   num_steps=28, guidance=2.5, initial_noise=initial_noise)
+            with span("inpaint.readback"):
+                out = (out[0].cpu().numpy() * 255).astype(np.uint8)
+                anchor()
+            return out
 
 
 def _models(cfgs) -> tuple:
@@ -242,7 +252,8 @@ def run(
         result = inpaint_hand(img, hand_mask, object_name=names.get(image_id, "object"),
                               models=models,
                               initial_noise=(initial_noise or {}).get(image_id), device=dev)
-        Image.fromarray(result).save(out_path)
+        with span("inpaint.png"):
+            Image.fromarray(result).save(out_path)
         print(f"Inpainted {image_id}")
 
 

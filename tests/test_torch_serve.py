@@ -218,16 +218,22 @@ def test_span_summary_reset_and_device_trace(tmp_path, monkeypatch):
     TP.reset()
     for _ in range(3):
         with TP.span("decode"):
+            with TP.span("inner"):
+                time.sleep(0.004)
             time.sleep(0.01)
     with pytest.raises(KeyError):
-        with TP.span("failing", block=True):
+        with TP.span("failing"):
             raise KeyError("x")
     text = TP.summary()
     lines = {line.split()[0]: line.split()[1:] for line in text.splitlines()[1:]}
-    assert text.splitlines()[0].split() == ["span", "calls", "total_s", "mean_ms"]
-    assert lines["decode"][0] == "3" and float(lines["decode"][1]) >= 0.03
+    assert text.splitlines()[0].split() == ["span", "calls", "host_s", "device_s", "self_ms"]
+    assert lines["decode"][0] == "3" and float(lines["decode"][1]) >= 0.042
+    # without a card the device interval is the host's; self time leaves out the child
+    assert float(lines["decode"][2]) == pytest.approx(float(lines["decode"][1]), abs=2e-3)
+    assert 10.0 <= float(lines["decode"][3]) < float(lines["decode"][1]) / 3 * 1e3 - 3.0
+    assert lines["inner"][0] == "3" and float(lines["inner"][3]) >= 4.0
     assert lines["failing"][0] == "1"
-    assert list(lines) == ["decode", "failing"]            # the longest total first
+    assert list(lines) == ["decode", "inner", "failing"]   # the longest host total first
     TP.reset()
     assert TP.summary().splitlines()[1:] == []
 
