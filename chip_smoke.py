@@ -17,7 +17,10 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             scaled_dot_product_attention as a yardstick (the port never calls it).
             Also the deterministic scatter-add behind every gather's gradient
             (ops/indexing.scatter_rows_add): no host sync, same bits in two
-            calls, timed beside the atomic index_add_ it replaced.
+            calls, timed beside the atomic index_add_ it replaced. And the FLUX
+            blocks' attention prologue (ops/rope.qk_norm_rope): QK RMS-norm, RoPE and
+            the joint [txt, img] write at stage 3's shapes, held against its plain
+            version, three mutants rejected (check_qk_norm_rope).
    entry    followmyhold_tpu_torch.entry.entry(): one CFG denoise step of the
             full-width DiT, as a harness calls it; K1 at [2,16,4442,128] exactly once
             in each of its 24 blocks, finite latents (run_entry_step).
@@ -77,7 +80,8 @@ Phases, each printing one line; any failure ends the run with a non-zero code:
             the FLUX VAE, CLIP-L and T5-XXL at full width and depth (bf16, seeded random
             weights built on the card, ~31.5 GiB) and synthetic tokenizer vocabularies, so
             that the prompt takes the checkpoint's path (77 CLIP and 512 T5 ids): 28 steps
-            an image with K1 at [1,24,2560,128], 57 launches a step. Its own launch counts;
+            an image with K1 at [1,24,2560,128], 57 launches a step, and the attention
+            prologue's kernel 76 launches a step. Its own launch counts;
             each {id}_inpainted_{rid}.png checked; the final latents finite; two 2-step
             kontext_edit calls must give the same bits; one full-width transformer forward
             with K1 held against the plain attention; s per image by part (tokenizing, T5
@@ -800,6 +804,182 @@ def check_scatter(dev, R, packed, slot, sphere) -> dict:
                 max_abs_err=max(x["max_abs_err"] for x in per_shape), ms=head["ms"],
                 plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
                 bound_by=head["bound_by"], library_ms=head["library_ms"], shapes=per_shape)
+
+
+def rope_pair_ulps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """|got - want| of rotated q or k [..., D] in bf16 ulps of the length of each
+    element's (even, odd) pair in ``want``. The rotation keeps a pair's length,
+    so a normed value one ulp off (the kernel sums the squares in another order
+    than PyTorch's reduction, which can move a rounding to bf16) comes out of it
+    at most one ulp of that length off, while the rotated element itself may be
+    much smaller than its pair."""
+    g = got.float().reshape(*got.shape[:-1], -1, 2)
+    w = want.float().reshape(*want.shape[:-1], -1, 2)
+    length = torch.hypot(w[..., 0], w[..., 1])[..., None]
+    # a bf16 value in [2^e, 2^(e+1)) has ulp 2^(e-7); 2^-133 is its least subnormal
+    ulp = torch.exp2((torch.floor(torch.log2(length.clamp_min(2.0 ** -126))) - 7.0)
+                     .clamp_min(-133.0))
+    return ((g - w).abs() / ulp).reshape(got.shape)
+
+
+# the share of q and k elements whose bits may differ from the plain version's:
+# the sum of squares' order moves a bf16 rounding of the normed value now and
+# then (41-44 of 15.7M elements at stage 3's shapes on an H100, 2.8e-6), while
+# a norm computed in lower precision moves a large share of them
+PROLOGUE_DIFFER_SHARE = 1e-5
+
+
+def _prologue_faults(got, want) -> list:
+    """What sets the kernel's q, k, v apart from the plain version's: q or k
+    more than one pair-length ulp off anywhere, more than
+    PROLOGUE_DIFFER_SHARE of their elements differing, or v not the same
+    bits."""
+    faults = [f"{name} {rope_pair_ulps(g, w).max().item():.3g} ulps"
+              for name, g, w in zip("qk", got[:2], want[:2])
+              if not rope_pair_ulps(g, w).max().item() <= 1.0]
+    n_differ = sum(int((g != w).sum().item()) for g, w in zip(got[:2], want[:2]))
+    n_qk = want[0].numel() + want[1].numel()
+    if n_differ > PROLOGUE_DIFFER_SHARE * n_qk:
+        faults.append(f"{n_differ} of {n_qk} q/k elements differ")
+    if not torch.equal(got[2], want[2]):
+        faults.append("v differs")
+    return faults
+
+
+def prologue_norm_lowered(streams, cos, sin, heads):
+    """qk_norm_rope_plain with each norm's 1/rms rounded to bf16: a norm in
+    lower precision than the plain version's, which the check must reject."""
+    from followmyhold_tpu_torch.ops import rope as R
+
+    def norm(x, weight):
+        xf = R._heads(x, heads).float()
+        r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + R.QK_NORM_EPS)
+        return (xf * r.to(torch.bfloat16).float() * weight).to(x.dtype)
+
+    q = torch.cat([norm(s[0], s[3]) for s in streams], dim=2)
+    k = torch.cat([norm(s[1], s[4]) for s in streams], dim=2)
+    v = torch.cat([R._heads(s[2], heads) for s in streams], dim=2)
+    return R.apply_rope(q, cos, sin), R.apply_rope(k, cos, sin), v
+
+
+def check_qk_norm_rope(dev) -> dict:
+    """The FLUX blocks' attention prologue (csrc/qk_norm_rope.cu behind
+    ops/rope.qk_norm_rope) at stage 3's shapes: a single block's stream
+    [1,2560,3072] into [1,24,2560,128], and a double block's two streams, 512
+    text rows at offset 0 and 2,048 image rows at offset 512, into one joint
+    buffer; cos/sin from a 512^2 crop's ids (the T5 rows at 0, the noisy and the
+    context latents). Held against qk_norm_rope_plain on the same inputs: q and k
+    within one bf16 ulp of their pair's length (rope_pair_ulps) and at most
+    PROLOGUE_DIFFER_SHARE of them differing, v the same bits; the same bits in
+    two calls; the checked call follows a call on other inputs whose freed
+    buffers the allocator hands to it; no host sync. Three mutants must fail
+    that check: the image rows written at offset 511, the plain output with
+    one pair's rotation sign flipped, and the plain output with the norm's
+    1/rms rounded to bf16 (prologue_norm_lowered). Timed eager and as
+    a CUDA-graph replay, beside the plain version (with the copy of v the
+    attention made of a single block's view) and the byte bound."""
+    from followmyhold_tpu_torch.models import flux as F
+    from followmyhold_tpu_torch.ops import _kernels
+    from followmyhold_tpu_torch.ops import rope as R
+    from followmyhold_tpu_torch.tools.time_raster_kernels import time_call
+
+    H, D, n_txt, n_img = 24, 128, 512, 2048
+    n_joint = n_txt + n_img
+    ids = torch.cat([torch.zeros(n_txt, 3), torch.from_numpy(F.latent_ids(32, 32, 0)),
+                     torch.from_numpy(F.latent_ids(32, 32, 1))]).to(dev)
+    cos, sin = F.rope_freqs(ids, F.FLUX_DEV.axes_dims_rope)
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def stream(n):
+        qkv = [torch.randn((1, n, H * D), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3)]
+        norms = [1.0 + 0.1 * torch.randn(D, generator=gen, device=dev) for _ in range(2)]
+        return (*qkv, *norms)
+
+    cases = [("single", [stream(n_joint)]), ("double", [stream(n_txt), stream(n_img)])]
+    per_case = []
+    for label, streams in cases:
+        negated = [tuple(-x for x in s) for s in streams]
+        other = R.qk_norm_rope_forward(negated, cos, sin, H)
+        del other
+        torch.cuda.synchronize()
+        before = _kernels.launch_counts()["qk_norm_rope"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = R.qk_norm_rope_forward(streams, cos, sin, H)
+            again = R.qk_norm_rope_forward(streams, cos, sin, H)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        launches = (_kernels.launch_counts()["qk_norm_rope"] - before) // 2
+        if launches != len(streams):
+            fail(f"qk_norm_rope {label}: {launches} launches a call for {len(streams)} streams")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"qk_norm_rope {label}: two calls on the same inputs differ")
+        want = R.qk_norm_rope_plain(streams, cos, sin, H)
+        faults = _prologue_faults(got, want)
+        if faults:
+            fail(f"qk_norm_rope {label}: differs from the plain version: {faults}")
+        ulps = [rope_pair_ulps(g, w).max().item() for g, w in zip(got[:2], want[:2])]
+        n_differ = sum(int((g != w).sum().item()) for g, w in zip(got[:2], want[:2]))
+
+        # the mutants the check must reject
+        if label == "double":
+            shifted = tuple(torch.zeros_like(x) for x in got)
+            R.qk_norm_rope_into(streams[0], cos, sin, H, shifted, 0)
+            R.qk_norm_rope_into(streams[1], cos, sin, H, shifted, n_txt - 1)
+            if not _prologue_faults(shifted, want):
+                fail("qk_norm_rope: the image rows at offset n_txt - 1 pass the check")
+        flipped_sin = sin.clone()
+        flipped_sin[:, 5] = -flipped_sin[:, 5]
+        flipped = R.qk_norm_rope_plain(streams, cos, flipped_sin, H)
+        if not _prologue_faults(flipped, want):
+            fail(f"qk_norm_rope {label}: one pair's rotation sign flipped passes the check")
+        if not _prologue_faults(prologue_norm_lowered(streams, cos, sin, H), want):
+            fail(f"qk_norm_rope {label}: the norm's 1/rms in bf16 passes the check")
+
+        t = time_call(lambda: R.qk_norm_rope_forward(streams, cos, sin, H))
+        plain = time_call(lambda: [x.contiguous()
+                                   for x in R.qk_norm_rope_plain(streams, cos, sin, H)])
+        n_elems = n_joint * H * D
+        nbytes = (2 * 3 * n_elems * 2               # q, k, v read and written, bf16
+                  + 2 * n_joint * (D // 2) * 4      # the cos and sin rows
+                  + len(streams) * 2 * D * 4)       # the norm scales
+        bound = nbytes / _HBM_BYTES * 1e3
+        per_case.append(dict(shape=label, tokens=n_joint, streams=len(streams),
+                             max_pair_ulps=max(ulps), qk_elements_differing=n_differ,
+                             ms=t["eager_ms"], graph_ms=t["graph_ms"],
+                             plain_ms=plain["eager_ms"], plain_graph_ms=plain["graph_ms"],
+                             bound_ms=bound, bound_by="bytes",
+                             pct_of_bound=100.0 * bound / t["graph_ms"],
+                             launches_per_call=launches))
+        say(f"kernel qk_norm_rope {label} ({len(streams)} stream(s), {n_joint} joint rows of "
+            f"{H}x{D}): q/k within {max(ulps):.3g} bf16 ulps of their pair's length, "
+            f"{n_differ} of their {2 * n_elems} elements differing (at most "
+            f"{PROLOGUE_DIFFER_SHARE:g} of them), v the same bits; same bits in "
+            f"two calls, no host sync; the three mutants rejected; kernel {t['eager_ms']:.4f} ms "
+            f"(graph replay {t['graph_ms']:.4f}), plain {plain['eager_ms']:.4f} ms (graph "
+            f"replay {plain['graph_ms']:.4f}); bound {bound:.4f} ms (bytes: {nbytes / 1e6:.1f} "
+            f"MB), {100.0 * bound / t['graph_ms']:.1f} % of it; {launches} launch(es) a call")
+    head = per_case[0]
+    return dict(name="qk_norm_rope", route="cuda", graph_ms=head["graph_ms"],
+                source="followmyhold_tpu_torch/csrc/qk_norm_rope.cu",
+                replaces=None,
+                replaces_note="no Pallas kernel: XLA fuses the reference's QK norm, RoPE and "
+                              "joint concatenation (followmyhold_tpu/models/flux.py)",
+                max_pair_ulps=max(x["max_pair_ulps"] for x in per_case), ms=head["ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], shapes=per_case)
+
+
+def attach_raster_overlays(kernels: list, overlays, multi_hand_overlays) -> None:
+    """Put the (raster_fwd, raster_bwd) measurements of stages 5-8's overlay
+    mesh and of the multi-hand frame's on the kernels of those names."""
+    by_name = {k["name"]: k for k in kernels}
+    for name, overlay, multi in zip(("raster_fwd", "raster_bwd"), overlays,
+                                    multi_hand_overlays, strict=True):
+        by_name[name]["overlay_mesh"] = overlay
+        by_name[name]["multi_hand_overlay_mesh"] = multi
 
 
 def check_rasterizer(dev) -> list:
@@ -2570,9 +2750,10 @@ def run_inpaint_stage(dev) -> dict:
     path: [1,77] CLIP and [1,512] T5 ids, K1 at [1,24,2560,128]. The launch counts
     are set to 0 just before the run and read just after. Checks each
     {id}_inpainted_{rid}.png (512x512x3 uint8, not its input), the final latents
-    finite, 57 x 28 K1 launches an image and no other kernel, two 2-step
-    kontext_edit calls with the same bits, and one full-width transformer forward
-    with K1 against the same forward with the plain attention. Prints s per image
+    finite, 57 x 28 K1 and 76 x 28 qk_norm_rope launches an image and no other
+    kernel, two 2-step kontext_edit calls with the same bits, and one full-width
+    transformer forward with K1 against the same forward with the plain
+    attention. Prints s per image
     by part (the card's parts on CUDA events, no host synchronisation added
     inside the stage), the median step and peak memory. The models are freed
     before the stages that follow."""
@@ -2642,6 +2823,9 @@ def run_inpaint_stage(dev) -> dict:
 
         want = {k: 0 for k in launches}
         want["flash_attention_fwd"] = n_blocks * n_steps * n
+        # the attention prologue: one launch a stream, two in a double block
+        want["qk_norm_rope"] = (2 * F.FLUX_DEV.num_layers + F.FLUX_DEV.num_single_layers) \
+            * n_steps * n
         if n_steps != 28 or launches != want:
             fail(f"stage 3 ran {n_steps} steps an image and launched {launches}, expected 28 "
                  f"steps and {want} ({n_blocks} K1 launches a step)")
@@ -3988,7 +4172,8 @@ def run_pipeline_phase(dev, models) -> dict:
             "raster_fwd": n_hand + n_obj + 2 * n_joint + 1,
             "raster_bwd": n_hand + n_obj + 2 * n_joint,
             "raster_chunk_plan": n_hand + n_obj + 2 * n_joint + 1,
-            "scatter_rows_add": 2 * (n_hand + n_obj + 2 * n_joint)}
+            "scatter_rows_add": 2 * (n_hand + n_obj + 2 * n_joint),
+            "qk_norm_rope": 76 * 28}
     short = {k: (launches[k], v) for k, v in want.items() if launches[k] < v}
     if short:
         fail(f"the pipeline launched kernels fewer times than its stages run them "
@@ -4033,7 +4218,7 @@ def main() -> None:
             fail(f"ptxas reports spills or serialised wgmma instructions in {src}")
 
     kernels = [check_flash_attention(dev), check_flash_attention_backward(dev),
-               *check_rasterizer(dev)]
+               *check_rasterizer(dev), check_qk_norm_rope(dev)]
     launches = launches_entry = launches_mesh = launches_convert = launches_hands = \
         launches_inpaint = launches_hoi = launches_moge = launches_batch = \
         launches_pipeline = {k["name"]: 0 for k in kernels}
@@ -4057,10 +4242,7 @@ def main() -> None:
         launches, hoi = ran["launches"], ran["hoi"]
         launches_hoi, launches_moge = hoi["launches"], hoi["moge"]["launches"]
         launches_batch = ran["batched"]["launches"]
-        for k, overlay, multi in zip(kernels[-3:-1], hoi["raster_overlay"],
-                                     hands["raster_overlay"]):
-            k["overlay_mesh"] = overlay
-            k["multi_hand_overlay_mesh"] = multi
+        attach_raster_overlays(kernels, hoi["raster_overlay"], hands["raster_overlay"])
         launches_pipeline = run_pipeline_phase(dev, ran.pop("models"))["launches"]
         profile_flux_step(dev)
     for k in kernels:

@@ -6,7 +6,10 @@ FluxTransformer2DModel and the FLUX AutoencoderKL):
 - ``FluxTransformer``: 19 double-stream and 38 single-stream blocks at width
   3072, 24 heads of 128, 3-axis RoPE (16/56/56) on interleaved (even, odd)
   pairs, adaLN-zero modulation from (timestep, guidance, pooled CLIP), T5
-  sequence conditioning. Every block's joint attention goes through
+  sequence conditioning. Every block's attention prologue (the QK RMS-norms,
+  RoPE, and the joint [txt, img] q, k and v) goes through
+  ``ops.rope.qk_norm_rope`` (on the card csrc/qk_norm_rope.cu, one launch a
+  stream: 76 a step), and its joint attention through
   ``ops.attention.multi_head_attention``: at a 512^2 crop (1,024 noisy
   tokens, 1,024 context tokens, 512 T5 tokens) the flash-attention kernel
   (csrc/flash_attention_fwd.cu) runs at [1, 24, 2560, 128], 57 times a step.
@@ -41,9 +44,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from followmyhold_tpu_torch.models.hunyuan import _merge_heads, _split_heads
+from followmyhold_tpu_torch.models.hunyuan import _merge_heads
 from followmyhold_tpu_torch.ops.attention import multi_head_attention
 from followmyhold_tpu_torch.ops.norms import group_norm_f32
+from followmyhold_tpu_torch.ops.rope import qk_norm_rope
 from followmyhold_tpu_torch.utils.profiling import anchor, span
 
 _LN_EPS = 1e-6
@@ -96,15 +100,6 @@ def rope_freqs(ids: torch.Tensor, axes_dims: Sequence[int], theta: float = 10000
     return torch.cat(cos, dim=-1), torch.cat(sin, dim=-1)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x [B, H, N, D]: rotate its interleaved (even, odd) pairs, in float32."""
-    xr = x.float().reshape(*x.shape[:-1], -1, 2)
-    x0, x1 = xr[..., 0], xr[..., 1]
-    c, s = cos[None, None], sin[None, None]
-    out = torch.stack([x0 * c - x1 * s, x0 * s + x1 * c], dim=-1)
-    return out.reshape(x.shape).to(x.dtype)
-
-
 def _layer_norm(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """LayerNorm without scale or bias, in float32, cast to ``dtype``."""
     return F.layer_norm(x.float(), (x.shape[-1],), eps=_LN_EPS).to(dtype)
@@ -129,16 +124,13 @@ class MlpEmbed(nn.Module):
 
 
 class QKNorm(nn.Module):
-    """Per-head RMSNorm with a learned scale (diffusers qk_norm='rms_norm')."""
+    """The learned scale of a per-head RMSNorm (diffusers qk_norm='rms_norm'),
+    which the blocks hand to ``ops.rope.qk_norm_rope``; a module, so the
+    parameter keeps its checkpoint name (``norm_q.weight``, ...)."""
 
     def __init__(self, dim: int, device=None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        var = xf.square().mean(dim=-1, keepdim=True)
-        return (xf * torch.rsqrt(var + 1e-6) * self.weight).to(x.dtype)
 
 
 class FluxDoubleBlock(nn.Module):
@@ -169,16 +161,11 @@ class FluxDoubleBlock(nn.Module):
         xin = _layer_norm(img, c.dtype) * (1 + im[1]) + im[0]
         tin = _layer_norm(txt, c.dtype) * (1 + tm[1]) + tm[0]
 
-        q = self.norm_q(_split_heads(self.to_q(xin), c.heads))
-        k = self.norm_k(_split_heads(self.to_k(xin), c.heads))
-        v = _split_heads(self.to_v(xin), c.heads)
-        tq = self.norm_added_q(_split_heads(self.add_q_proj(tin), c.heads))
-        tk = self.norm_added_k(_split_heads(self.add_k_proj(tin), c.heads))
-        tv = _split_heads(self.add_v_proj(tin), c.heads)
-
-        q = apply_rope(torch.cat([tq, q], dim=2), cos, sin)
-        k = apply_rope(torch.cat([tk, k], dim=2), cos, sin)
-        v = torch.cat([tv, v], dim=2)
+        img_stream = (self.to_q(xin), self.to_k(xin), self.to_v(xin),
+                      self.norm_q.weight, self.norm_k.weight)
+        txt_stream = (self.add_q_proj(tin), self.add_k_proj(tin), self.add_v_proj(tin),
+                      self.norm_added_q.weight, self.norm_added_k.weight)
+        q, k, v = qk_norm_rope([txt_stream, img_stream], cos, sin, c.heads)
         attn = _merge_heads(_attention(q, k, v))
         n_txt = txt.shape[1]
         t_attn, x_attn = attn[:, :n_txt], attn[:, n_txt:]
@@ -216,9 +203,8 @@ class FluxSingleBlock(nn.Module):
         c = self.cfg
         shift, scale, gate = self.norm_linear(F.silu(vec))[:, None].chunk(3, dim=-1)
         xin = _layer_norm(x, c.dtype) * (1 + scale) + shift
-        q = apply_rope(self.norm_q(_split_heads(self.to_q(xin), c.heads)), cos, sin)
-        k = apply_rope(self.norm_k(_split_heads(self.to_k(xin), c.heads)), cos, sin)
-        v = _split_heads(self.to_v(xin), c.heads)
+        q, k, v = qk_norm_rope([(self.to_q(xin), self.to_k(xin), self.to_v(xin),
+                                 self.norm_q.weight, self.norm_k.weight)], cos, sin, c.heads)
         attn = _merge_heads(_attention(q, k, v))
         mlp = F.gelu(self.proj_mlp(xin), approximate="tanh")
         return x + gate * self.proj_out(torch.cat([attn, mlp], dim=-1))

@@ -34,11 +34,12 @@ _SOURCES = {
     "raster_fwd.cu": ["-fmad=false"],
     "raster_bwd.cu": ["-fmad=false"],
     "scatter_rows.cu": [],
+    "qk_norm_rope.cu": [],
 }
 _HEADERS = ["hopper_common.cuh", "raster_common.cuh"]
 
 LAUNCH_COUNTS = {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "raster_chunk_plan": 0,
-                 "raster_fwd": 0, "raster_bwd": 0, "scatter_rows_add": 0}
+                 "raster_fwd": 0, "raster_bwd": 0, "scatter_rows_add": 0, "qk_norm_rope": 0}
 
 # The C signature of every entry point, parameter by parameter: "p" a pointer
 # (or the stream), "i" an int, "f" a float; each returns an int error code.
@@ -51,6 +52,7 @@ ENTRY_POINTS = {
     "fmh_raster_fwd": "ppppppppiiiiiiffffp",
     "fmh_raster_bwd": "pppppppppiiiiiiffp",
     "fmh_scatter_rows_add": "ppppiiip",
+    "fmh_qk_norm_rope": "ppppppppppiiiiiiiifp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

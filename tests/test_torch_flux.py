@@ -38,6 +38,7 @@ import followmyhold_tpu.ops.attention  # noqa: F401  (imported before any jit tr
 from followmyhold_tpu.models import flux as JF
 from followmyhold_tpu_torch.models import flux as TF
 from followmyhold_tpu_torch.ops import _kernels
+from followmyhold_tpu_torch.ops.rope import apply_rope
 from followmyhold_tpu_torch.utils.params import flax_to_torch
 
 N_TXT = 160
@@ -125,7 +126,7 @@ def test_sinusoidal_embedding_and_rope_match():
     np.testing.assert_allclose(got_cos.numpy(), want_cos, atol=two_ulps, rtol=0)
     np.testing.assert_allclose(got_sin.numpy(), want_sin, atol=two_ulps, rtol=0)
     x = np.random.default_rng(1).normal(size=(1, 2, 2053, 128)).astype(np.float32)
-    got = TF.apply_rope(_t(x), _t(want_cos), _t(want_sin)).numpy()
+    got = apply_rope(_t(x), _t(want_cos), _t(want_sin)).numpy()
     np.testing.assert_array_equal(got, JF.apply_rope(jnp.asarray(x), want_cos, want_sin))
     # interleaved (even, odd) pairs: each pair keeps its length
     np.testing.assert_allclose(np.hypot(got[..., 0::2], got[..., 1::2]),

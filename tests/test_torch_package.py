@@ -49,10 +49,10 @@ def test_source_imports_nothing_of_jax(path):
 def test_kernel_sources_exist_and_are_not_built_at_import():
     csrc = PORT / "csrc"
     for name in ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "raster_fwd.cu",
-                 "raster_bwd.cu", "raster_common.cuh"):
+                 "raster_bwd.cu", "raster_common.cuh", "qk_norm_rope.cu"):
         assert (csrc / name).is_file(), name
     # importing the wrappers must not need nvcc, ctypes libraries or a GPU
-    from followmyhold_tpu_torch.ops import _kernels, attention, rasterizer  # noqa: F401
+    from followmyhold_tpu_torch.ops import _kernels, attention, rasterizer, rope  # noqa: F401
 
     assert _kernels._lib is None
 
@@ -62,7 +62,7 @@ def test_launch_counters_reset():
 
     assert set(_kernels.launch_counts()) == {"flash_attention_fwd", "flash_attention_bwd",
                                              "raster_chunk_plan", "raster_fwd", "raster_bwd",
-                                             "scatter_rows_add"}
+                                             "scatter_rows_add", "qk_norm_rope"}
     _kernels.LAUNCH_COUNTS["raster_fwd"] += 3
     _kernels.reset_launch_counts()
     assert all(v == 0 for v in _kernels.launch_counts().values())
